@@ -2,11 +2,14 @@
 for NVIDIA Hopper (H100).
 
 The layout mirrors the JAX package, module for module:
-  ops/        — MSDA (plain version + hand-written CUDA kernel), exact resizes,
+  ops/        — MSDA (plain versions + hand-written CUDA kernels), exact resizes,
                 window attention
   csrc/       — CUDA C++ kernel sources, built with nvcc at first use
-  utils/      — box math, size/time buckets
+  utils/      — box math, size/time buckets, metric logging, prefetch
   models/     — Video-Swin, RoBERTa, fusion, deformable transformer, VOC, heads
+  losses/     — Hungarian matcher (exact on-device LAP), criterion, mask losses
+  training/   — optax-semantics optimizer, train step, checkpoints, Trainer
+  data/       — synthetic dataset and collation
   config.py   — YAML config loading (the same configs/*.yaml)
   convert.py  — JAX parameter tree -> this package's state_dict
   inference.py — whole-video referring inference engine

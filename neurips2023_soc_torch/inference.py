@@ -32,18 +32,13 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .data.collate import IMAGENET_MEAN, IMAGENET_STD
 from .device import resolve_device
 from .models.text_encoder import build_tokenizer
 from .ops import resize_bilinear
 from .utils.padded import pick_size_bucket, pick_time_bucket
 
 DEFAULT_TIME_BUCKETS = (8, 16, 32, 64)
-
-# the ImageNet statistics of the dataset pipeline
-# (neurips2023_soc_tpu/data/collate.py), kept bit-compatible with its host
-# normalize
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _normalize_u8_in_graph(pixels: torch.Tensor, pad_mask: torch.Tensor,

@@ -33,6 +33,7 @@ def build_model(config, device: Optional[Union[str, torch.device]] = None,
         enc_layers=dt["enc_layers"],
         dec_layers=dt["dec_layers"],
         dim_feedforward=dt["dim_feedforward"],
+        dropout=dt.get("dropout", 0.1),
         enc_n_points=dt["enc_n_points"],
         dec_n_points=dt["dec_n_points"],
         with_box_refine=config.with_box_refine,
@@ -46,6 +47,7 @@ def build_model(config, device: Optional[Union[str, torch.device]] = None,
         voc_enc_layers=voc["enc_layers"],
         voc_dec_layers=voc["dec_layers"],
         text_encoder_type=config.text_encoder_type,
+        freeze_text_encoder=config.get("freeze_text_encoder", True),
         vl_loss=config.vl_loss,
         use_remat=config.get("use_checkpoint", False),
         dtype=dtype,

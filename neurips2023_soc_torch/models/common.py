@@ -14,12 +14,17 @@ Epsilons: flax's LayerNorm/GroupNorm default to 1e-6 where torch's default to
 1e-5, so every norm here takes 1e-6 unless the JAX code sets its own.
 
 All sequence tensors are batch-major (B, S, C); feature maps are channels-last.
-Dropout is not applied: this package runs inference only.
+
+Dropout sits where the JAX package has `deterministic=`. A layer's forward
+takes `rng`, a torch.Generator on the tensors' device: with a generator it
+draws its masks from it (training mode; the train step reseeds it every
+step, the counterpart of `rngs={"dropout": rng}`), without one it applies no
+dropout (inference, and every frozen or deterministic path).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -43,6 +48,28 @@ def _promote(*xs: torch.Tensor):
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
     return [x.to(dt) for x in xs]
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout twin: with a generator, keep each element with
+    probability 1 - p and scale it by 1 / (1 - p); without one, identity."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if rng is None or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def get_activation(name: str) -> Callable:
@@ -163,18 +190,20 @@ class MultiheadAttention(nn.Module):
     batch-major. key_padding_mask: (B, S_k) True on padding; attn_mask:
     bool (True = blocked) or additive, (S_q, S_k) or (B*H, S_q, S_k)."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model, self.num_heads, self.dtype = d_model, num_heads, dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
+        self.attn_drop = Dropout(dropout)
 
     def init_params(self, generator):
         nn.init.xavier_uniform_(self.in_proj_weight, generator=generator)
         nn.init.zeros_(self.in_proj_bias)
 
-    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
+    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None, rng=None):
         C, H = self.d_model, self.num_heads
         Dh = C // H
         w = self.in_proj_weight.to(self.dtype)
@@ -202,6 +231,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], -1e9)
         attn = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        attn = self.attn_drop(attn, rng)
         attn, v = _promote(attn, v)
         out = (attn @ v).transpose(1, 2).reshape(B, Sq, C)
         return self.out_proj(out)
@@ -227,15 +257,17 @@ class MLP(nn.Module):
 
 
 class FeatureResizer(nn.Module):
-    """Linear + LayerNorm(eps=1e-12)."""
+    """Linear + LayerNorm(eps=1e-12) + dropout."""
 
-    def __init__(self, input_dim: int, output_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, input_dim: int, output_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.fc = Linear(input_dim, output_dim, dtype=dtype)
         self.layer_norm = LayerNorm(output_dim, eps=1e-12, dtype=dtype)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.layer_norm(self.fc(x))
+    def forward(self, x, rng=None):
+        return self.drop(self.layer_norm(self.fc(x)), rng)
 
 
 class MMF(nn.Module):
@@ -260,44 +292,52 @@ class FFNLayer(nn.Module):
     """Post-norm transformer FFN block."""
 
     def __init__(self, d_model: int, dim_feedforward: int = 2048,
-                 activation: str = "relu", dtype: torch.dtype = torch.float32):
+                 activation: str = "relu", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
         self.norm = LayerNorm(d_model, dtype=dtype)
         self.activation = get_activation(activation)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.norm(x + self.linear2(self.activation(self.linear1(x))))
+    def forward(self, x, rng=None):
+        h = self.drop(self.activation(self.linear1(x)), rng)
+        return self.norm(x + self.drop(self.linear2(h), rng))
 
 
 class SelfAttentionLayer(nn.Module):
     """Post-norm self-attention block."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, num_heads, dtype)
+        self.self_attn = MultiheadAttention(d_model, num_heads, dtype, dropout)
         self.norm = LayerNorm(d_model, dtype=dtype)
+        self.drop = Dropout(dropout)
 
-    def forward(self, tgt, tgt_mask=None, tgt_key_padding_mask=None, query_pos=None):
+    def forward(self, tgt, tgt_mask=None, tgt_key_padding_mask=None, query_pos=None,
+                rng=None):
         q = tgt if query_pos is None else tgt + query_pos
         tgt2 = self.self_attn(q, q, tgt, key_padding_mask=tgt_key_padding_mask,
-                              attn_mask=tgt_mask)
-        return self.norm(tgt + tgt2)
+                              attn_mask=tgt_mask, rng=rng)
+        return self.norm(tgt + self.drop(tgt2, rng))
 
 
 class CrossAttentionLayer(nn.Module):
     """Post-norm cross-attention block."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
-        self.multihead_attn = MultiheadAttention(d_model, num_heads, dtype)
+        self.multihead_attn = MultiheadAttention(d_model, num_heads, dtype, dropout)
         self.norm = LayerNorm(d_model, dtype=dtype)
+        self.drop = Dropout(dropout)
 
     def forward(self, tgt, memory, memory_key_padding_mask=None, pos=None,
-                query_pos=None):
+                query_pos=None, rng=None):
         q = tgt if query_pos is None else tgt + query_pos
         k = memory if pos is None else memory + pos
         tgt2 = self.multihead_attn(q, k, memory,
-                                   key_padding_mask=memory_key_padding_mask)
-        return self.norm(tgt + tgt2)
+                                   key_padding_mask=memory_key_padding_mask, rng=rng)
+        return self.norm(tgt + self.drop(tgt2, rng))

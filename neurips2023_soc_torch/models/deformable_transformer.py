@@ -22,7 +22,7 @@ import torch.nn as nn
 
 from ..ops import ms_deform_attn
 from ..utils.boxes import inverse_sigmoid
-from .common import MLP, LayerNorm, Linear, MultiheadAttention, get_activation
+from .common import MLP, Dropout, LayerNorm, Linear, MultiheadAttention, get_activation
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
 
@@ -105,7 +105,7 @@ class MSDeformAttnModule(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
-                 activation="relu", dtype=torch.float32):
+                 activation="relu", dtype=torch.float32, dropout=0.1):
         super().__init__()
         self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
@@ -113,20 +113,22 @@ class EncoderLayer(nn.Module):
         self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.activation = get_activation(activation)
+        self.drop = Dropout(dropout)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, rng=None):
         q = src if pos is None else src + pos
         src2, _, _ = self.self_attn(q, reference_points, src, spatial_shapes,
                                     padding_mask)
-        src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(self.activation(self.linear1(src))))
+        src = self.norm1(src + self.drop(src2, rng))
+        h = self.drop(self.activation(self.linear1(src)), rng)
+        return self.norm2(src + self.drop(self.linear2(h), rng))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
-                 activation="relu", dtype=torch.float32):
+                 activation="relu", dtype=torch.float32, dropout=0.1):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads, dtype)
+        self.self_attn = MultiheadAttention(d_model, n_heads, dtype, dropout)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points, dtype)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
@@ -134,16 +136,18 @@ class DecoderLayer(nn.Module):
         self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
         self.norm3 = LayerNorm(d_model, dtype=dtype)
         self.activation = get_activation(activation)
+        self.drop = Dropout(dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                src_padding_mask):
+                src_padding_mask, rng=None):
         q = tgt if query_pos is None else tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.drop(self.self_attn(q, q, tgt, rng=rng), rng))
         q = tgt if query_pos is None else tgt + query_pos
         tgt2, loc, attn = self.cross_attn(q, reference_points, src, spatial_shapes,
                                           src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        tgt = self.norm3(tgt + self.linear2(self.activation(self.linear1(tgt))))
+        tgt = self.norm1(tgt + self.drop(tgt2, rng))
+        h = self.drop(self.activation(self.linear1(tgt)), rng)
+        tgt = self.norm3(tgt + self.drop(self.linear2(h), rng))
         return tgt, loc, attn
 
 
@@ -201,14 +205,15 @@ class DeformableTransformer(nn.Module):
                  dim_feedforward: int = 2048, activation: str = "relu",
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, two_stage: bool = False, two_stage_num_proposals: int = 300,
-                 num_classes: int = 1, dtype: torch.dtype = torch.float32):
+                 num_classes: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
         self.num_feature_levels = num_feature_levels
         self.two_stage = two_stage
         self.two_stage_num_proposals = two_stage_num_proposals
         kw = dict(d_model=d_model, d_ffn=dim_feedforward, n_levels=num_feature_levels,
-                  n_heads=n_heads, activation=activation, dtype=dtype)
+                  n_heads=n_heads, activation=activation, dtype=dtype, dropout=dropout)
         self.encoder = _Layers(EncoderLayer(n_points=enc_n_points, **kw)
                                for _ in range(num_encoder_layers))
         self.decoder = _Layers(DecoderLayer(n_points=dec_n_points, **kw)
@@ -259,10 +264,11 @@ class DeformableTransformer(nn.Module):
 
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], query_embed: Optional[torch.Tensor],
-                bbox_embed: Sequence[nn.Module]):
+                bbox_embed: Sequence[nn.Module], rng: Optional[torch.Generator] = None):
         """srcs/pos_embeds: per level (B*T, H, W, C); masks: per level
         (B*T, H, W) True=pad; query_embed (Nq, C), None when two_stage;
-        bbox_embed: the per-decoder-layer box heads."""
+        bbox_embed: the per-decoder-layer box heads; rng: the dropout
+        generator (None: no dropout)."""
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         src_flat = torch.cat([s.reshape(s.shape[0], -1, s.shape[-1]) for s in srcs], 1)
         mask_flat = torch.cat([m.reshape(m.shape[0], -1) for m in masks], 1)
@@ -275,7 +281,7 @@ class DeformableTransformer(nn.Module):
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         memory = src_flat
         for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat, rng)
 
         B = memory.shape[0]
         enc_outputs = None
@@ -310,7 +316,7 @@ class DeformableTransformer(nn.Module):
                              * torch.cat([valid_ratios, valid_ratios], -1)[:, None])
             else:
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
-            tgt, _, _ = layer(tgt, qe, ref_input, memory, spatial_shapes, mask_flat)
+            tgt, _, _ = layer(tgt, qe, ref_input, memory, spatial_shapes, mask_flat, rng)
             # box refinement (every config refines)
             tmp = bbox_embed[lid](tgt).float()
             if reference_points.shape[-1] == 4:
@@ -318,6 +324,7 @@ class DeformableTransformer(nn.Module):
             else:
                 xy = tmp[..., :2] + inverse_sigmoid(reference_points)
                 new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], -1))
+            # no gradient through the refined references (JAX stop_gradient)
             reference_points = new_ref.detach()
             hs_list.append(tgt)
             ref_list.append(reference_points)

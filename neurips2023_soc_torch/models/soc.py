@@ -1,5 +1,5 @@
 """SOC — Semantic-assisted Object Cluster, the composition root (torch twin of
-neurips2023_soc_tpu/models/soc.py), inference form.
+neurips2023_soc_tpu/models/soc.py).
 
 Channels-last and batch-major; time is folded into batch b-major, `(b t)`
 rows, for all per-frame stages. Outputs, as in the JAX package:
@@ -8,9 +8,17 @@ rows, for all per-frame stages. Outputs, as in the JAX package:
   pred_boxes:  (Le, T, B, Nq, 4)
   pred_logit:  (Le, B, Nq, C)
   text_sentence_feature: (B, C)
-where Le = 1 with vl_loss on: the reference's deployed inference scores the
-layer-0 queries with the layer-0 heads (its zip truncation,
-neurips2023_soc_tpu/models/soc.py:338-356), and Le = dec_layers otherwise.
+where Le = 1 at inference with vl_loss on: the reference's deployed inference
+scores the layer-0 queries with the layer-0 heads (its zip truncation,
+neurips2023_soc_tpu/models/soc.py:338-356), and Le = dec_layers otherwise and
+in training.
+
+Training mode (`training=True`, with `rng`, a torch.Generator on the model's
+device): every decoder layer goes through VOC and the heads, and dropout
+(transformer `dropout`, VOC and txt_proj 0.1) and the backbone's drop path
+draw their masks from `rng`. A frozen text encoder runs without dropout and
+passes no gradient back (JAX stop_gradient); its parameters stay in the
+optimizer's view with no gradient.
 
 Parameter names are the reference SOC's state_dict keys, so a JAX parameter
 tree converts (convert.py) and loads with strict=True.
@@ -54,7 +62,8 @@ class SOC(nn.Module):
                  voc_window_size: int = 0, voc_enc_layers: int = 3,
                  voc_dec_layers: int = 3, text_encoder_type: str = "roberta-base",
                  vl_loss: bool = True, use_remat: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 freeze_text_encoder: bool = True):
         super().__init__()
         if backbone_name not in SWIN_CONFIGS:
             raise ValueError(f"unknown backbone {backbone_name} "
@@ -67,6 +76,7 @@ class SOC(nn.Module):
         self.d_model, self.dtype = d_model, dtype
         self.num_feature_levels = num_feature_levels
         self.vl_loss, self.rel_coord = vl_loss, rel_coord
+        self.freeze_text_encoder = freeze_text_encoder
         self.mask_kernels_dim = mask_kernels_dim
         self.controller_layers = controller_layers
         self.dynamic_mask_channels = dynamic_mask_channels
@@ -80,7 +90,7 @@ class SOC(nn.Module):
             num_decoder_layers=dec_layers, dim_feedforward=dim_feedforward,
             num_feature_levels=num_feature_levels, dec_n_points=dec_n_points,
             enc_n_points=enc_n_points, two_stage=two_stage, two_stage_num_proposals=two_stage_num_proposals,
-            num_classes=num_classes, dtype=dtype)
+            num_classes=num_classes, dtype=dtype, dropout=dropout)
         # two-stage replaces the Nq learned queries with top-k proposals
         eff_nq = two_stage_num_proposals if two_stage else num_queries
         self.voc = VOC(input_dim=C, window_size=voc_window_size,
@@ -91,7 +101,8 @@ class SOC(nn.Module):
         text_cfg = ROBERTA_CONFIGS.get(name, ROBERTA_CONFIGS["roberta-base"])
         self.text_encoder = RobertaEncoder(text_cfg, dtype=dtype)
         # txt_proj runs in float32 in the JAX model (it is given no dtype)
-        self.txt_proj = FeatureResizer(text_cfg.hidden_size, C, dtype=torch.float32)
+        self.txt_proj = FeatureResizer(text_cfg.hidden_size, C, dtype=torch.float32,
+                                       dropout=0.1)
         self.vlf = MMF(C, nheads, dtype=dtype)
         self.lvf = MMF(C, nheads, dtype=dtype)
 
@@ -125,29 +136,48 @@ class SOC(nn.Module):
         for head in self.class_embed:
             nn.init.constant_(head.bias, self.bias_value)
 
-    def encode_text(self, text_ids, text_mask):
-        """RoBERTa -> txt_proj'd token sequence + sentence feature."""
-        last_hidden, pooled = self.text_encoder(text_ids, text_mask)
-        return self.txt_proj(last_hidden), self.txt_proj(pooled), text_mask == 0
+    def encode_text(self, text_ids, text_mask, rng=None):
+        """RoBERTa -> txt_proj'd token sequence + sentence feature. A frozen
+        encoder runs without dropout and without autograd (JAX stop_gradient)."""
+        if self.freeze_text_encoder:
+            with torch.no_grad():
+                last_hidden, pooled = self.text_encoder(text_ids, text_mask)
+        else:
+            last_hidden, pooled = self.text_encoder(text_ids, text_mask, rng)
+        return (self.txt_proj(last_hidden, rng), self.txt_proj(pooled, rng),
+                text_mask == 0)
 
-    def backbone_features(self, pixels: torch.Tensor, pad_mask: torch.Tensor = None):
+    @staticmethod
+    def _dropout_rng(training: bool, rng: Optional[torch.Generator]):
+        if not training:
+            return None
+        if rng is None:
+            raise ValueError("training mode draws dropout and drop-path masks: pass "
+                             "rng, a torch.Generator on the model's device")
+        return rng
+
+    def backbone_features(self, pixels: torch.Tensor, pad_mask: torch.Tensor = None,
+                          training: bool = False,
+                          rng: Optional[torch.Generator] = None):
         """The text-independent stage: pixels (T, B, H, W, 3) -> b-major
         (B*T, Hi, Wi, Ci) maps per level. `pad_mask` is unused; it keeps the
-        stage's signature that of the whole clip."""
+        stage's signature that of the whole clip. Training applies drop path."""
         video = pixels.permute(1, 0, 2, 3, 4).to(self.dtype)
-        return self.backbone[0].body(video)
+        return self.backbone[0].body(video, self._dropout_rng(training, rng))
 
     def head(self, features, pad_mask: torch.Tensor, text_ids: torch.Tensor,
              text_mask: torch.Tensor, sample_sizes: Optional[torch.Tensor] = None,
-             valid_indices: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             valid_indices: Optional[torch.Tensor] = None, training: bool = False,
+             rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The text-dependent stage: text encoding, fusion, deformable
         transformer, VOC, heads, dynamic masks. pad_mask (T, B, H, W) True on
         padding; text_ids/text_mask (B, S)."""
         Tfull, B, H, W = pad_mask.shape
         C, dt = self.d_model, self.dtype
+        rng = self._dropout_rng(training, rng)
 
         text_word_features, text_sentence_feature, txt_pad_mask = self.encode_text(
-            text_ids, text_mask)
+            text_ids, text_mask, rng)
         text_pos = position_embedding_sine_1d(txt_pad_mask, C).to(dt)
 
         pad_bt = pad_mask.permute(1, 0, 2, 3).reshape(B * Tfull, H, W)
@@ -195,7 +225,7 @@ class SOC(nn.Module):
 
         query_embed = None if self.query_embed is None else self.query_embed.weight
         hs, memory_features, init_reference, inter_references, enc_outputs = (
-            self.transformer(srcs, masks, poses, query_embed, self.bbox_embed))
+            self.transformer(srcs, masks, poses, query_embed, self.bbox_embed, rng))
         Lyr, Nq = hs.shape[0], hs.shape[2]
 
         # sentence feature for the vl loss: mean of the last fused level's
@@ -206,9 +236,15 @@ class SOC(nn.Module):
         # rows are b-major (b t); a slip to t-major here still passes at B = 1,
         # which is why the parity tests run at B = 2
         hs_tb = hs.view(Lyr, B, T, Nq, C).permute(0, 2, 1, 3, 4)  # (L, T, B, Nq, C)
-        voc_hs = self.voc(hs_tb, text_sentence_feature)  # (1, B, Nq, C)
-        emit_layers = (0,) if self.vl_loss else tuple(range(Lyr))
-        voc_hs = voc_hs.expand(Lyr, B, Nq, C)
+        # (Lyr, B, Nq, C) in training; (1, B, Nq, C), the last layer's, at
+        # inference, broadcast back over the layers
+        voc_hs = self.voc(hs_tb, text_sentence_feature, training, rng)
+        if training or not self.vl_loss:
+            emit_layers = tuple(range(Lyr))
+        else:
+            emit_layers = (0,)
+        if not training:
+            voc_hs = voc_hs.expand(Lyr, B, Nq, C)
         hs_voc = hs_tb + voc_hs[:, None]
         hs_voc_flat = hs_voc.permute(0, 2, 1, 3, 4).reshape(Lyr, B * T, Nq, C)
 
@@ -259,9 +295,11 @@ class SOC(nn.Module):
     def forward(self, pixels: torch.Tensor, pad_mask: torch.Tensor,
                 text_ids: torch.Tensor, text_mask: torch.Tensor,
                 sample_sizes: Optional[torch.Tensor] = None,
-                valid_indices: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                valid_indices: Optional[torch.Tensor] = None, training: bool = False,
+                rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """pixels (T, B, H, W, 3); pad_mask (T, B, H, W) True on padding;
-        text_ids/text_mask (B, S)."""
-        features = self.backbone_features(pixels, pad_mask)
+        text_ids/text_mask (B, S); training=True needs rng (dropout masks)."""
+        features = self.backbone_features(pixels, pad_mask, training, rng)
         return self.head(features, pad_mask, text_ids, text_mask,
-                         sample_sizes=sample_sizes, valid_indices=valid_indices)
+                         sample_sizes=sample_sizes, valid_indices=valid_indices,
+                         training=training, rng=rng)

@@ -5,6 +5,9 @@ Module names follow HF `RobertaModel`'s state_dict under `text_encoder.`
 (`embeddings.*`, `encoder.layer.{i}.*`, `pooler.dense`), so the reference's
 keys load strictly. There are no hub weights: a local pretrained directory
 gives HF's fast tokenizer, anything else the deterministic hash tokenizer.
+Dropout (config.dropout) applies only when the forward gets a generator: SOC
+passes none while the encoder is frozen, as the JAX package runs a frozen
+encoder deterministic.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Embedding, LayerNorm, Linear
+from .common import Dropout, Embedding, LayerNorm, Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +36,7 @@ class RobertaConfig:
     type_vocab_size: int = 1
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
+    dropout: float = 0.1
 
 
 ROBERTA_CONFIGS = {
@@ -84,11 +88,14 @@ class RobertaEncoder(nn.Module):
         self.encoder = nn.ModuleDict(
             {"layer": nn.ModuleList(layer() for _ in range(cfg.num_layers))})
         self.pooler = nn.ModuleDict({"dense": Linear(C, C, dtype=dtype)})
+        self.drop = Dropout(cfg.dropout)
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """input_ids, attention_mask: (B, S) int, mask 1 on real tokens.
-        Returns (last_hidden_state (B, S, H), pooler_output (B, H))."""
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """input_ids, attention_mask: (B, S) int, mask 1 on real tokens; rng:
+        the dropout generator (None: no dropout). Returns (last_hidden_state
+        (B, S, H), pooler_output (B, H))."""
+        drop = self.drop
         cfg, dt, emb = self.config, self.dtype, self.embeddings
         # RoBERTa position ids: incremental over non-pad tokens, offset by
         # padding_idx (the first real token gets index 2)
@@ -97,7 +104,7 @@ class RobertaEncoder(nn.Module):
         h = (emb["word_embeddings"](input_ids.long()).to(dt)
              + emb["position_embeddings"](position_ids).to(dt)
              + emb["token_type_embeddings"](torch.zeros_like(mask_i)).to(dt))
-        h = emb["LayerNorm"](h)
+        h = drop(emb["LayerNorm"](h), rng)
 
         pad_bias = torch.where(attention_mask[:, None, None, :] == 0, -1e9, 0.0)
         Hn = cfg.num_heads
@@ -110,13 +117,13 @@ class RobertaEncoder(nn.Module):
             v = sa["value"](h).view(B, S, Hn, Dh).transpose(1, 2)
             logits = (q @ k.transpose(-2, -1)) / math.sqrt(Dh)
             logits = logits + pad_bias.to(logits.dtype)
-            attn = torch.softmax(logits.float(), dim=-1).to(dt)
+            attn = drop(torch.softmax(logits.float(), dim=-1).to(dt), rng)
             ctx = (attn @ v).transpose(1, 2).reshape(B, S, cfg.hidden_size)
             out = lyr["attention"]["output"]
-            h = out["LayerNorm"](h + out["dense"](ctx))
+            h = out["LayerNorm"](h + drop(out["dense"](ctx), rng))
             inter = F.gelu(lyr["intermediate"]["dense"](h))  # exact GELU
             out = lyr["output"]
-            h = out["LayerNorm"](h + out["dense"](inter))
+            h = out["LayerNorm"](h + drop(out["dense"](inter), rng))
         pooled = torch.tanh(self.pooler["dense"](h[:, 0]))
         return h, pooled
 

@@ -10,11 +10,17 @@ once per geometry. Window attention is `ops.window_attention_torch`.
 
 Layout: channels-last. Input (B, T, H, W, 3); outputs four per-frame maps
 [(B*T, H/4, W/4, C), ..., (B*T, H/32, W/32, 8C)].
+
+Training adds stochastic depth (drop path): block i of n drops each residual
+branch per sample with rate linspace(0, drop_path_rate, n)[i], keeping it
+scaled by 1 / (1 - rate). The keep masks are drawn by the backbone from the
+caller's generator before each block runs, so a block recomputed under
+torch.utils.checkpoint sees the same masks.
 """
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,6 +126,18 @@ class WindowAttention3D(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
 
+def drop_path(x: torch.Tensor, keep_mask: Optional[torch.Tensor],
+              rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth (JAX video_swin.py:248-253): samples with
+    keep_mask False are zeroed, the others scaled by 1 / (1 - rate).
+    keep_mask None means identity (inference, or rate 0)."""
+    if keep_mask is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    m = keep_mask.view((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class _Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, dtype):
         super().__init__()
@@ -133,16 +151,19 @@ class _Mlp(nn.Module):
 class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: Window, shift: Window,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
+        self.drop_path = float(drop_path)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = WindowAttention3D(dim, window, num_heads, qkv_bias, dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, D, H, W, C)."""
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, D, H, W, C); keep: (2, B) bool drop-path masks of the two
+        residual branches, or None."""
         B, D, H, W, C = x.shape
         window, shift = _effective_window((D, H, W), self.window, self.shift)
         shortcut = x
@@ -165,8 +186,9 @@ class SwinBlock3D(nn.Module):
         x = x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, Dp, Hp, Wp, C)
         if shifted:
             x = torch.roll(x, shift, dims=(1, 2, 3))
-        x = shortcut + x[:, :D, :H, :W]
-        return x + self.mlp(self.norm2(x))
+        k_attn, k_mlp = (None, None) if keep is None else keep
+        x = shortcut + drop_path(x[:, :D, :H, :W], k_attn, self.drop_path)
+        return x + drop_path(self.mlp(self.norm2(x)), k_mlp, self.drop_path)
 
 
 class PatchMerging(nn.Module):
@@ -222,17 +244,19 @@ class VideoSwinBackbone(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: Window = (8, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_norm: bool = True,
                  out_norms: bool = False, use_remat: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.2):
         super().__init__()
         self.patch_size, self.use_remat = tuple(patch_size), use_remat
         self.patch_embed = _PatchEmbed3D(patch_size, embed_dim, patch_norm, dtype)
         shift = tuple(w // 2 for w in window)
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
         stages, downs, dim = [], [], embed_dim
         for s, depth in enumerate(depths):
+            first = sum(depths[:s])
             stages.append(_Stage(
                 SwinBlock3D(dim, num_heads[s], window,
                             (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
-                            dtype)
+                            dtype, float(dpr[first + i]))
                 for i in range(depth)))
             if s < len(depths) - 1:
                 downs.append(PatchMerging(dim, dtype))
@@ -243,8 +267,9 @@ class VideoSwinBackbone(nn.Module):
         for s in range(self.num_out_norms):
             self.add_module(f"norm{s}", LayerNorm(embed_dim * 2 ** s, dtype=dtype))
 
-    def forward(self, video: torch.Tensor):
-        """video: (B, T, H, W, 3) -> list of 4 maps (B*T, Hi, Wi, Ci)."""
+    def forward(self, video: torch.Tensor, rng: Optional[torch.Generator] = None):
+        """video: (B, T, H, W, 3) -> list of 4 maps (B*T, Hi, Wi, Ci). With a
+        generator `rng`, drop path is applied (training)."""
         B, T, H, W, _ = video.shape
         pd, ph, pw = self.patch_size
         video = F.pad(video, (0, 0, 0, (-W) % pw, 0, (-H) % ph, 0, (-T) % pd))
@@ -252,10 +277,15 @@ class VideoSwinBackbone(nn.Module):
         outs = []
         for s, stage in enumerate(self.layers):
             for block in stage.blocks:
+                keep = None
+                if rng is not None and block.drop_path > 0.0:
+                    keep = torch.rand(2, B, generator=rng, device=x.device) \
+                        < 1.0 - block.drop_path
                 if self.use_remat and torch.is_grad_enabled():
-                    x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+                    x = torch.utils.checkpoint.checkpoint(block, x, keep,
+                                                          use_reentrant=False)
                 else:
-                    x = block(x)
+                    x = block(x, keep)
             y = getattr(self, f"norm{s}")(x) if self.num_out_norms else x
             Bc, Tc, Hc, Wc, Cc = y.shape
             outs.append(y.reshape(Bc * Tc, Hc, Wc, Cc))
@@ -282,9 +312,11 @@ SWIN_CONFIGS = {
 
 def build_video_swin(name: str, use_remat: bool = False,
                      dtype: torch.dtype = torch.float32) -> VideoSwinBackbone:
+    """The rate is the config's own drop_path_rate, else 0.2, as the JAX
+    package's build_video_swin resolves it."""
     cfg = dict(SWIN_CONFIGS[name])
-    cfg.pop("drop_path_rate", None)  # drop path is a training-time option
     return VideoSwinBackbone(
         patch_size=(1, 4, 4), window=cfg.pop("window", (8, 7, 7)),
+        drop_path_rate=cfg.pop("drop_path_rate", 0.2),
         out_norms=cfg.pop("out_norms", False), patch_norm=True,
         use_remat=use_remat, dtype=dtype, **cfg)

@@ -1,5 +1,5 @@
 """VOC — Video Object Cluster (torch twin of neurips2023_soc_tpu/models/voc.py),
-the paper's temporal aggregation module, inference form.
+the paper's temporal aggregation module.
 
 Takes per-decoder-layer frame queries (Lyr, T, B, Nq, C) and the pooled
 sentence feature (B, C); runs a (shifted-)window or full temporal
@@ -24,7 +24,7 @@ class VOC(nn.Module):
     def __init__(self, input_dim: int = 256, window_size: int = 0,
                  num_frame_queries: int = 20, num_queries: int = 20, num_heads: int = 8,
                  dim_feedforward: int = 2048, enc_layers: int = 3, dec_layers: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
         super().__init__()
         C = input_dim
         self.window_size, self.num_queries, self.num_heads = (
@@ -33,23 +33,24 @@ class VOC(nn.Module):
         self.fq_pos = Embedding(num_frame_queries, C)
         self.query_embed = Embedding(num_queries, C)
         self.decoder_norm = LayerNorm(C, dtype=dtype)
+        kw = dict(dtype=dtype, dropout=dropout)
         self.enc_self_attn = nn.ModuleList(
-            SelfAttentionLayer(C, num_heads, dtype) for _ in range(enc_layers))
+            SelfAttentionLayer(C, num_heads, **kw) for _ in range(enc_layers))
         self.enc_ffn = nn.ModuleList(
-            FFNLayer(C, dim_feedforward, dtype=dtype) for _ in range(enc_layers))
+            FFNLayer(C, dim_feedforward, **kw) for _ in range(enc_layers))
         self.transformer_cross_attention_layers = nn.ModuleList(
-            CrossAttentionLayer(C, num_heads, dtype) for _ in range(dec_layers))
+            CrossAttentionLayer(C, num_heads, **kw) for _ in range(dec_layers))
         self.transformer_self_attention_layers = nn.ModuleList(
-            SelfAttentionLayer(C, num_heads, dtype) for _ in range(dec_layers))
+            SelfAttentionLayer(C, num_heads, **kw) for _ in range(dec_layers))
         self.transformer_ffn_layers = nn.ModuleList(
-            FFNLayer(C, dim_feedforward, dtype=dtype) for _ in range(dec_layers))
+            FFNLayer(C, dim_feedforward, **kw) for _ in range(dec_layers))
 
-    def _encode_full(self, fq: torch.Tensor) -> torch.Tensor:
+    def _encode_full(self, fq: torch.Tensor, rng) -> torch.Tensor:
         """Full temporal attention over all T*Nq tokens (window_size == 0)."""
         LB, T, Nq, C = fq.shape
         x = fq.reshape(LB, T * Nq, C)
         for attn, ffn in zip(self.enc_self_attn, self.enc_ffn):
-            x = ffn(attn(x))
+            x = ffn(attn(x, rng=rng), rng)
         return x.reshape(LB, T, Nq, C)
 
     def _window_masks(self, T: int, t_valid: int, Nq: int, LB: int, device):
@@ -77,31 +78,36 @@ class VOC(nn.Module):
         shift = shift.reshape(LB * Nw * self.num_heads, W * Nq, W * Nq)
         return torch.from_numpy(np.ascontiguousarray(win_pad)).to(**to), shift
 
-    def _encode_windowed(self, fq: torch.Tensor, t_valid: int) -> torch.Tensor:
-        """(Shifted-)window temporal attention, inference alternation (even
-        layers plain windows, odd layers shifted). fq: (LB, T, Nq, C), T a
-        multiple of window_size; frames >= t_valid are padding."""
+    def _encode_windowed(self, fq: torch.Tensor, t_valid: int, training: bool,
+                         rng) -> torch.Tensor:
+        """(Shifted-)window temporal attention. At inference even layers use
+        plain windows and odd layers shifted ones; in training every layer
+        uses plain windows (JAX voc.py:133, `training or i % 2 == 0`).
+        fq: (LB, T, Nq, C), T a multiple of window_size; frames >= t_valid
+        are padding."""
         LB, T, Nq, C = fq.shape
         W = self.window_size
         Nw, half = T // W, math.ceil(W / 2)
         win_pad, shift_mask = self._window_masks(T, t_valid, Nq, LB, fq.device)
         x = fq
         for i, (attn, ffn) in enumerate(zip(self.enc_self_attn, self.enc_ffn)):
-            if i % 2 == 0:
+            if training or i % 2 == 0:
                 xw = x.reshape(LB * Nw, W * Nq, C)
-                xw = ffn(attn(xw, tgt_key_padding_mask=win_pad))
+                xw = ffn(attn(xw, tgt_key_padding_mask=win_pad, rng=rng), rng)
                 x = xw.reshape(LB, T, Nq, C)
             else:
                 xw = torch.roll(x, half, dims=1).reshape(LB * Nw, W * Nq, C)
-                xw = ffn(attn(xw, tgt_mask=shift_mask))
+                xw = ffn(attn(xw, tgt_mask=shift_mask, rng=rng), rng)
                 x = torch.roll(xw.reshape(LB, T, Nq, C), -half, dims=1)
         return x
 
-    def forward(self, frame_query: torch.Tensor,
-                language_query: torch.Tensor) -> torch.Tensor:
+    def forward(self, frame_query: torch.Tensor, language_query: torch.Tensor,
+                training: bool = False, rng=None) -> torch.Tensor:
         """frame_query (Lyr, T, B, Nq, C); language_query (B, C) ->
-        (1, B, num_queries, C): inference uses the last layer only."""
-        frame_query = frame_query[-1:]
+        (Lyr', B, num_queries, C): inference uses the last layer only
+        (Lyr' = 1), training every layer. rng: the dropout generator."""
+        if not training:
+            frame_query = frame_query[-1:]
         Lyr, T, B, Nq, C = frame_query.shape
         LB = Lyr * B
         fq = frame_query.permute(0, 2, 1, 3, 4).reshape(LB, T, Nq, C).to(self.dtype)
@@ -109,9 +115,9 @@ class VOC(nn.Module):
         if self.window_size > 0:
             pad = (-T) % self.window_size
             fq_p = torch.nn.functional.pad(fq, (0, 0, 0, 0, 0, pad))
-            fq = self._encode_windowed(fq_p, T)[:, :T]
+            fq = self._encode_windowed(fq_p, T, training, rng)[:, :T]
         else:
-            fq = self._encode_full(fq)
+            fq = self._encode_full(fq, rng)
 
         src = fq.reshape(LB, T * Nq, C)
         # pos for token (t, nq) is fq_pos[nq]
@@ -122,7 +128,7 @@ class VOC(nn.Module):
         for cross, self_attn, ffn in zip(self.transformer_cross_attention_layers,
                                          self.transformer_self_attention_layers,
                                          self.transformer_ffn_layers):
-            out = cross(out, src, pos=dec_pos, query_pos=qe)
-            out = self_attn(out, query_pos=qe)
-            out = ffn(out)
+            out = cross(out, src, pos=dec_pos, query_pos=qe, rng=rng)
+            out = self_attn(out, query_pos=qe, rng=rng)
+            out = ffn(out, rng)
         return self.decoder_norm(out).reshape(Lyr, B, self.num_queries, C)

@@ -1,5 +1,6 @@
-"""Multi-scale deformable attention (MSDA): the plain PyTorch version and the
-wrapper of its hand-written CUDA kernel (`csrc/ms_deform_attn_fwd.cu`).
+"""Multi-scale deformable attention (MSDA): the plain PyTorch versions of the
+forward and backward and the wrappers of their hand-written CUDA kernels
+(`csrc/ms_deform_attn_fwd.cu`, `csrc/ms_deform_attn_bwd.cu`).
 
 Semantics (neurips2023_soc_tpu/ops/ms_deform_attn.py): for every (batch,
 query, head), sample `P` bilinear points from each of `L` flattened feature
@@ -16,7 +17,10 @@ Shapes (channels-last, head-major), as in the JAX package:
   returns:             (B, Lq, M * D)
 
 `ms_deform_attn` sends a CPU tensor to `ms_deform_attn_torch` and a CUDA
-tensor to the kernel; it never falls back from one to the other.
+tensor to the forward kernel; it never falls back from one to the other. Its
+gradient is the backward kernel for a CUDA tensor and `ms_deform_attn_torch_bwd`
+for a CPU tensor: (d_value, d_sampling_locations, d_attention_weights), each
+in its input's dtype, with d_value summed in float32 and rounded once.
 
 Rounding: the JAX XLA path rounds each bf16 `value * weight` product to bf16
 before its float32 sum (neurips2023_soc_tpu/ops/ms_deform_attn.py:202-204);
@@ -82,6 +86,25 @@ def ms_deform_attn_torch(
     return out.permute(0, 2, 1, 3).reshape(B, Lq, M * D).to(value.dtype)
 
 
+def ms_deform_attn_torch_bwd(
+    value: torch.Tensor,
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward: autograd through `ms_deform_attn_torch` (which
+    recomputes the forward). Every corner outside its level has zero weight and
+    zero slope; `d_loc_x = W * dL/dx` for the pixel coordinate
+    `x = loc_x * W - 0.5` (neurips2023_soc_tpu/ops/ms_deform_attn.py:100-113)."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in
+                  (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_torch(inputs[0], spatial_shapes, inputs[1], inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
 def _check(value, spatial_shapes, loc, attn):
     if value.device.type != "cuda":
         raise ValueError(f"the MSDA kernel takes CUDA tensors, got {value.device}")
@@ -137,14 +160,60 @@ def _launch(value, spatial_shapes, loc, attn) -> torch.Tensor:
     return out
 
 
-class _MSDeformAttnKernel(torch.autograd.Function):
+def _launch_bwd(value, spatial_shapes, loc, attn, grad_out):
+    B, S, M, D, Lq, L, P = _check(value, spatial_shapes, loc, attn)
+    g = grad_out.contiguous()
+    if tuple(g.shape) != (B, Lq, M * D) or g.dtype != value.dtype \
+            or g.device != value.device:
+        raise ValueError(f"grad_out {tuple(g.shape)} {g.dtype} on {g.device}, expected "
+                         f"{(B, Lq, M * D)} {value.dtype} on {value.device}")
+    lib = _build.load("ms_deform_attn_bwd")
+    fn = lib.msda_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    # f32 sums for d_value (atomics), cast once at the end
+    d_value = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+    d_loc = torch.empty_like(loc)
+    d_attn = torch.empty_like(attn)
+    shapes = (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+                 d_value.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
+                 B, S, M, D, Lq, L, P, shapes,
+                 int(value.dtype == torch.bfloat16), int(attn.dtype == torch.bfloat16),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"MSDA backward kernel launch failed: CUDA error {err}")
+    ms_deform_attn.bwd_launches += 1
+    return d_value.to(value.dtype), d_loc, d_attn
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """The kernels for CUDA tensors, the plain versions for CPU tensors. The
+    plain backward recomputes the forward (as the JAX package's
+    jax.checkpoint does) instead of keeping its gathers."""
+
     @staticmethod
     def forward(ctx, value, loc, attn, spatial_shapes):
+        ctx.save_for_backward(value, loc, attn)
+        ctx.spatial_shapes = spatial_shapes
+        if value.device.type == "cpu":
+            ms_deform_attn.plain_calls += 1
+            return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
         return _launch(value, spatial_shapes, loc, attn)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("MSDA backward kernel (K2) not ported yet")
+        value, loc, attn = ctx.saved_tensors
+        if value.device.type == "cpu":
+            ms_deform_attn.plain_bwd_calls += 1
+            grads = ms_deform_attn_torch_bwd(value, ctx.spatial_shapes, loc, attn, grad_out)
+        else:
+            grads = _launch_bwd(value, ctx.spatial_shapes, loc, attn, grad_out)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None)
 
 
 def ms_deform_attn(
@@ -153,17 +222,15 @@ def ms_deform_attn(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """MSDA forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. `ms_deform_attn.launches` counts kernel launches and
-    `ms_deform_attn.plain_calls` counts calls sent to the plain version."""
+    """MSDA forward: the CUDA kernels for CUDA tensors, the plain versions for
+    CPU tensors. Counters: `ms_deform_attn.launches` / `.bwd_launches` count
+    forward / backward kernel launches, `.plain_calls` / `.plain_bwd_calls`
+    the forward / backward calls sent to the plain versions."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if value.device.type == "cpu":
-        ms_deform_attn.plain_calls += 1
-        return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                    attention_weights)
-    return _MSDeformAttnKernel.apply(value, sampling_locations, attention_weights,
-                                     spatial_shapes)
+    return _MSDeformAttn.apply(value, sampling_locations, attention_weights, spatial_shapes)
 
 
 ms_deform_attn.launches = 0
 ms_deform_attn.plain_calls = 0
+ms_deform_attn.bwd_launches = 0
+ms_deform_attn.plain_bwd_calls = 0

@@ -1,5 +1,6 @@
-"""Box conversions and inverse_sigmoid (torch twins of
-neurips2023_soc_tpu/utils/boxes.py, the parts the model uses)."""
+"""Box conversions, IoU / GIoU and inverse_sigmoid (torch twins of
+neurips2023_soc_tpu/utils/boxes.py, the parts the model, matcher and
+criterion use)."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +14,32 @@ def box_cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
 def box_xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
     x0, y0, x1, y1 = b.unbind(-1)
     return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], -1)
+
+
+def box_area(b: torch.Tensor) -> torch.Tensor:
+    return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU and union. boxes1: (..., N, 4), boxes2: (..., M, 4), xyxy."""
+    area1, area2 = box_area(boxes1), box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes, (..., N, M). No assertion on degenerate
+    boxes, as in the JAX package: callers mask invalid entries."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

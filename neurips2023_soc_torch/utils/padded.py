@@ -5,6 +5,12 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+# the training resolutions' spatial buckets (360/640 Ref-YTVOS, 320/576 A2D),
+# multiples of 64 so every level of the stride-4..64 pyramid is integral
+DEFAULT_SIZE_BUCKETS: Tuple[Tuple[int, int], ...] = (
+    (256, 448), (320, 576), (384, 640), (448, 768), (512, 896))
+DEFAULT_TIME_BUCKETS: Tuple[int, ...] = (1, 8, 16, 32, 64)
+
 
 def eval_size_buckets(short_size: int, max_size: int) -> Tuple[Tuple[int, int], ...]:
     """Size buckets covering both orientations of eval-resized frames."""
