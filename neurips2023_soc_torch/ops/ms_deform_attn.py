@@ -18,9 +18,10 @@ Shapes (channels-last, head-major), as in the JAX package:
 
 `ms_deform_attn` sends a CPU tensor to `ms_deform_attn_torch` and a CUDA
 tensor to the forward kernel; it never falls back from one to the other. Its
-gradient is the backward kernel for a CUDA tensor and `ms_deform_attn_torch_bwd`
-for a CPU tensor: (d_value, d_sampling_locations, d_attention_weights), each
-in its input's dtype, with d_value summed in float32 and rounded once.
+gradient is the backward kernel for a CUDA tensor and autograd through
+`ms_deform_attn_torch` for a CPU tensor (as `ms_deform_attn_torch_bwd`
+computes it): (d_value, d_sampling_locations, d_attention_weights), each in
+its input's dtype, with d_value summed in float32 and rounded once.
 
 Rounding: the JAX XLA path rounds each bf16 `value * weight` product to bf16
 before its float32 sum (neurips2023_soc_tpu/ops/ms_deform_attn.py:202-204);
@@ -190,30 +191,25 @@ def _launch_bwd(value, spatial_shapes, loc, attn, grad_out):
     return d_value.to(value.dtype), d_loc, d_attn
 
 
-class _MSDeformAttn(torch.autograd.Function):
-    """The kernels for CUDA tensors, the plain versions for CPU tensors. The
-    plain backward recomputes the forward (as the JAX package's
-    jax.checkpoint does) instead of keeping its gathers."""
+class _MSDeformAttnKernel(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
 
     @staticmethod
     def forward(ctx, value, loc, attn, spatial_shapes):
         ctx.save_for_backward(value, loc, attn)
         ctx.spatial_shapes = spatial_shapes
-        if value.device.type == "cpu":
-            ms_deform_attn.plain_calls += 1
-            return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
         return _launch(value, spatial_shapes, loc, attn)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
-        if value.device.type == "cpu":
-            ms_deform_attn.plain_bwd_calls += 1
-            grads = ms_deform_attn_torch_bwd(value, ctx.spatial_shapes, loc, attn, grad_out)
-        else:
-            grads = _launch_bwd(value, ctx.spatial_shapes, loc, attn, grad_out)
+        grads = _launch_bwd(value, ctx.spatial_shapes, loc, attn, grad_out)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None)
+
+
+def _count_plain_bwd(grad):
+    ms_deform_attn.plain_bwd_calls += 1
 
 
 def ms_deform_attn(
@@ -227,7 +223,15 @@ def ms_deform_attn(
     forward / backward kernel launches, `.plain_calls` / `.plain_bwd_calls`
     the forward / backward calls sent to the plain versions."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    return _MSDeformAttn.apply(value, sampling_locations, attention_weights, spatial_shapes)
+    if value.device.type == "cpu":  # autograd differentiates the plain version
+        ms_deform_attn.plain_calls += 1
+        out = ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
+                                   attention_weights)
+        if out.requires_grad:
+            out.register_hook(_count_plain_bwd)
+        return out
+    return _MSDeformAttnKernel.apply(value, sampling_locations, attention_weights,
+                                     spatial_shapes)
 
 
 ms_deform_attn.launches = 0

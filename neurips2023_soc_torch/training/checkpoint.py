@@ -73,18 +73,15 @@ class CheckpointManager:
         return json.loads(mj.read_text()) if mj.exists() else None
 
 
-def load_torch_checkpoint(path, loaded_ckpt=None) -> Dict[str, torch.Tensor]:
+def load_torch_checkpoint(path) -> Dict[str, torch.Tensor]:
     """The weights of a reference `.pth.tar` (or a bare state_dict) as a
-    state_dict of CPU tensors. `loaded_ckpt` skips a second torch.load for a
-    caller that already read the file."""
-    ckpt = loaded_ckpt
-    if ckpt is None:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state_dict of CPU tensors."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return dict(ckpt.get("model_state_dict", ckpt.get("state_dict", ckpt)))
 
 
 def save_reference_checkpoint(model: torch.nn.Module, path, epoch: int = 0,
-                              total_epochs: int = 0, best_map=None, best_loss=None):
+                              total_epochs: int = 0, best_loss=None):
     """Write a `.pth.tar` in the reference trainer's on-disk layout, so a
     checkpoint trained here loads in the reference codebase and its
     inference tools."""
@@ -96,8 +93,6 @@ def save_reference_checkpoint(model: torch.nn.Module, path, epoch: int = 0,
         "scheduler_state_dict": {},
         "grad_scaler_state_dict": {},
     }
-    if best_map is not None:
-        ckpt["best_mAP"] = float(best_map)
     if best_loss is not None:
         ckpt["best_loss"] = float(best_loss)
     torch.save(ckpt, path)

@@ -76,11 +76,6 @@ class Trainer:
                                            has_valid_indices=has_valid)
         return self._state
 
-    def _current_lr(self) -> float:
-        step = self._state.step if self._state is not None else 0
-        drops = sum(1 for m in self.milestones_steps if step >= m)
-        return float(self.config.lr) * self.gamma ** drops
-
     def train(self) -> None:
         print("Training started...")
         if self._state is None:
@@ -105,7 +100,7 @@ class Trainer:
                 n += 1
                 terms = {k: v for k, v in metrics.items() if k != "loss"}
                 terms = dict(zip(terms, torch.stack(list(terms.values())).tolist()))
-                mlog.update(loss=loss, grad_norm=terms["grad_norm"], lr=self._current_lr())
+                mlog.update(loss=loss, grad_norm=terms["grad_norm"], lr=self._state.optimizer.lr("main"))
                 dt = time.perf_counter() - end
                 iter_time.update(dt)
                 self.history.append({"loss": loss, **terms, "step_time_s": dt,
@@ -122,7 +117,7 @@ class Trainer:
                 "epoch_time_s": time.time() - t_epoch,
                 "step_time_s": iter_time.global_avg,
                 "data_time_s": data_time.global_avg,
-                "lr": self._current_lr(),
+                "lr": self._state.optimizer.lr("main"),
             }
             is_best = epoch_loss < self.best_loss
             if is_best:

@@ -11,13 +11,16 @@ from typing import Iterable, Iterator, TypeVar
 T = TypeVar("T")
 
 
-def prefetch(iterable: Iterable[T], buffer_size: int = 2) -> Iterator[T]:
-    """Iterate `iterable` on a background thread, keeping up to `buffer_size`
+BUFFER_SIZE = 2
+
+
+def prefetch(iterable: Iterable[T]) -> Iterator[T]:
+    """Iterate `iterable` on a background thread, keeping up to BUFFER_SIZE
     items ready ahead of the consumer. Order is preserved; an exception
     raised by the producer re-raises at the consuming site. The worker is a
     daemon thread: abandoning the iterator early leaves it blocked on the
     bounded queue, which is harmless and reclaimed at exit."""
-    q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
+    q: "queue.Queue" = queue.Queue(maxsize=BUFFER_SIZE)
 
     def worker():
         try:

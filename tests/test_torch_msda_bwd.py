@@ -47,8 +47,10 @@ def _inputs(shapes, B, M, D, Lq, P, seed, uniform):
 
 
 # (shapes, B, M, D, Lq, P, uniform): the bwd cases of tests/test_pallas_msda.py,
-# size-1 levels, and locations far outside [0, 1]
+# a two-level cut of them (small enough for the Pallas interpreter), size-1
+# levels, and locations far outside [0, 1]
 CASES = {
+    "two_levels": (PALLAS_SHAPES[1:], 1, 2, 8, 7, 2, False),
     "pallas_encoder": (PALLAS_SHAPES, 2, 2, 8, None, 2, False),
     "pallas_uniform": (PALLAS_SHAPES, 2, 2, 8, None, 2, True),
     "pallas_decoder": (PALLAS_SHAPES, 2, 2, 8, 7, 2, False),
@@ -88,7 +90,7 @@ def test_plain_bwd_vs_jax_vjp(case):
 
 
 def test_plain_bwd_vs_pallas_bwd_interpret():
-    shapes, v, loc, a, g = _case("pallas_decoder")
+    shapes, v, loc, a, g = _case("two_levels")
     want = ms_deform_attn_pallas_bwd(v, shapes, loc, a, jnp.asarray(g), interpret=True)
     for name, got, w in zip(("d_value", "d_loc", "d_attn"), _port_bwd(shapes, v, loc, a, g),
                             want):
@@ -96,8 +98,9 @@ def test_plain_bwd_vs_pallas_bwd_interpret():
 
 
 def test_cpu_gradients_take_the_plain_backward():
-    """Autograd through the wrapper on CPU tensors runs the plain backward
-    (counted) and equals it exactly; no kernel is launched."""
+    """Autograd through the wrapper on CPU tensors differentiates the plain
+    version (counted once) and equals the plain backward exactly; no kernel
+    is launched."""
     shapes, v, loc, a, g = _case("size1_pyramid", seed=3)
     ins = [torch.from_numpy(x).requires_grad_() for x in (v, loc, a)]
     counts = (ms_deform_attn.launches, ms_deform_attn.bwd_launches,

@@ -13,7 +13,6 @@ to 0."""
 import flax.linen
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -24,11 +23,12 @@ from neurips2023_soc_tpu.models.soc import SOC as JaxSOC
 from neurips2023_soc_torch.convert import load_jax_params, state_dict_from_jax
 from neurips2023_soc_torch.data import SyntheticRVOSDataset, collate_batch
 from neurips2023_soc_torch.losses import CriterionConfig, compute_criterion, total_loss
-from neurips2023_soc_torch.models.common import Dropout
+from neurips2023_soc_torch.models.common import Dropout, init_weights
 from neurips2023_soc_torch.models.soc import SOC
 from neurips2023_soc_torch.models.text_encoder import build_tokenizer
 from neurips2023_soc_torch.training.optim import global_norm
 from neurips2023_soc_torch.training.train_step import TARGET_KEYS
+from torch_port_helpers import jax_params_from_torch
 
 KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
           enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,
@@ -73,16 +73,18 @@ class _NoFlaxDropout:
 
 @pytest.fixture(scope="module")
 def step():
-    """Both models from one JAX init (sampling offsets moved off the pixel
-    grid), the batch, and the JAX side's training-mode outputs, loss terms
-    and gradients from one compile."""
+    """Both models from the port's seeded init (sampling offsets moved off
+    the pixel grid), the batch, the JAX side's training-mode outputs, loss
+    terms and gradients from one compile, and the port's from one forward
+    and backward."""
     b = _batch()
     inputs = [b[k] for k in ("pixels", "pad_mask", "text_ids", "text_mask")]
     jm = JaxSOC(dropout=0.0, **KW)
-    params = jax.tree_util.tree_map(np.asarray,
-                                    jax.jit(jm.init)(jax.random.PRNGKey(0), *inputs))
+    tm = init_weights(SOC(dropout=0.0, **KW), torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *inputs)
+    params = {"params": jax_params_from_torch(tm, shapes["params"])}
     params = _perturb_sampling_offsets(params, np.random.RandomState(0))
-    tm = load_jax_params(SOC(dropout=0.0, **KW), params)
+    load_jax_params(tm, params)
     for m in tm.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
@@ -99,30 +101,30 @@ def step():
     with _NoFlaxDropout():
         (loss, (losses, out)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             params)
-    return tm, b, dict(loss=loss, losses=losses, out=out, grads=grads)
 
-
-def _torch_head(tm, b):
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items() if hasattr(v, "ndim")}
     feats = tm.backbone_features(t["pixels"], t["pad_mask"])
-    out = tm.head(feats, t["pad_mask"], t["text_ids"], t["text_mask"],
-                  sample_sizes=t["sample_sizes"], training=True, rng=torch.Generator())
-    return out, {k: t[k] for k in TARGET_KEYS}
+    tout = tm.head(feats, t["pad_mask"], t["text_ids"], t["text_mask"],
+                   sample_sizes=t["sample_sizes"], training=True, rng=torch.Generator())
+    tlosses = compute_criterion(tout, {k: t[k] for k in TARGET_KEYS}, CriterionConfig())
+    tloss = total_loss(tlosses, CriterionConfig())
+    tloss.backward()
+    return tm, dict(loss=loss, losses=losses, out=out, grads=grads), \
+        dict(loss=tloss, losses=tlosses, out=tout)
 
 
 def test_training_forward_parity_all_layers(step):
     """Training mode emits every decoder layer (Le = dec_layers) with VOC
     run per layer; values as tests/test_torch_soc.py compares them."""
-    tm, b, jax_res = step
-    want = jax_res["out"]
-    with torch.no_grad():
-        got, _ = _torch_head(tm, b)
+    _, jax_res, port = step
+    want, got = jax_res["out"], port["out"]
     assert got["pred_masks"].shape[0] == KW["dec_layers"]
     for k in ("pred_masks", "pred_cls", "pred_boxes", "pred_logit", "text_sentence_feature"):
         w = np.asarray(want[k])
         assert tuple(got[k].shape) == w.shape, k
         atol = 1e-4 * max(1.0, float(np.abs(w).max())) if k == "pred_masks" else 1e-4
-        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4, atol=atol, err_msg=k)
+        np.testing.assert_allclose(got[k].detach().numpy(), w, rtol=1e-4, atol=atol,
+                                   err_msg=k)
 
 
 def test_train_step_losses_and_gradients_vs_jax(step):
@@ -130,21 +132,18 @@ def test_train_step_losses_and_gradients_vs_jax(step):
     frozen text encoder's zeros included) and named gradients at 1e-4; a
     gradient's absolute tolerance is 1e-4 of its largest magnitude, as the
     mask logits' (f32 cancellation through the dynamic mask head)."""
-    tm, b, jax_res = step
+    tm, jax_res, port = step
     jlosses, jgrads = jax_res["losses"], jax_res["grads"]
-    tm.zero_grad(set_to_none=True)
-    out, targets = _torch_head(tm, b)
-    losses = compute_criterion(out, targets, CriterionConfig())
-    loss = total_loss(losses, CriterionConfig())
-    loss.backward()
+    losses, loss = port["losses"], port["loss"]
     assert sorted(losses) == sorted(jlosses)
     for k in jlosses:
         np.testing.assert_allclose(losses[k].item(), float(jlosses[k]), rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     np.testing.assert_allclose(loss.item(), float(jax_res["loss"]), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(global_norm(p.grad for p in tm.parameters()).item(),
-                               float(optax.global_norm(jgrads)), rtol=1e-4)
     want = state_dict_from_jax(jgrads)
+    np.testing.assert_allclose(global_norm(p.grad for p in tm.parameters()).item(),
+                               np.sqrt(sum(np.square(w, dtype=np.float64).sum()
+                                           for w in want.values())), rtol=1e-4)
     got = dict(tm.named_parameters())
     for name in ("class_embed.1.weight", "bbox_embed.0.layers.2.bias", "controller.layers.0.weight",
                  "transformer.level_embed",
@@ -160,4 +159,3 @@ def test_train_step_losses_and_gradients_vs_jax(step):
     assert all(p.grad is None for n, p in got.items() if n.startswith("text_encoder."))
     assert max(float(np.abs(v).max()) for k, v in want.items()
                if k.startswith("text_encoder.")) == 0.0
-    tm.zero_grad(set_to_none=True)

@@ -68,15 +68,19 @@ def test_optimizer_vs_optax(accum, freeze, scale):
     tx = jax_optim.build_optimizer({"params": tree}, milestones_steps=[1], **kw)
     jparams = jax.tree_util.tree_map(jnp.asarray, {"params": tree})
     jstate = tx.init(jparams)
+
+    @jax.jit
+    def jax_step(grads, state, params):
+        upd, state = tx.update(grads, state, params)
+        return optax.apply_updates(params, upd), state
+
     model = _Params(tree)
     opt = build_optimizer(model, milestones_steps=[1], **kw)
     for step in range(3 * accum):
         grads = {g: {k: (scale * rng.randn(*v.shape)).astype(np.float32)
                      for k, v in leaves.items()} for g, leaves in tree.items()}
         grads["head"]["unused"] = np.zeros_like(tree["head"]["unused"])
-        upd, jstate = tx.update(jax.tree_util.tree_map(jnp.asarray, {"params": grads}),
-                                jstate, jparams)
-        jparams = optax.apply_updates(jparams, upd)
+        jparams, jstate = jax_step({"params": grads}, jstate, jparams)
         for name, p in model.named_parameters():
             g, k = name.split(".")
             p.grad = None if k == "unused" else torch.tensor(grads[g][k])

@@ -2,12 +2,21 @@
 initialize a flax module from numpy inputs, carry its parameters into the
 port's twin, and compare outputs as numpy arrays."""
 import re
+from collections.abc import Mapping
 
 import jax
 import numpy as np
 import torch
 
 from neurips2023_soc_torch.convert import INVERSE_TRANSFORMS, flax_to_torch
+
+# torch layout -> flax layout: the inverses of convert.INVERSE_TRANSFORMS
+TRANSFORMS = {
+    "linear": lambda x: np.ascontiguousarray(x.T),
+    "conv": lambda x: np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0))),
+    "conv3d": lambda x: np.ascontiguousarray(np.transpose(x, (2, 3, 4, 1, 0))),
+    "copy": lambda x: x,
+}
 
 
 def run_jax(fn, *args, **kwargs):
@@ -78,6 +87,27 @@ def soc_state_dict(tree, flax_prefix, torch_prefix):
             key = key[len(torch_prefix):]
         sd[key] = INVERSE_TRANSFORMS[kind](leaf)
     return sd
+
+
+def jax_params_from_torch(model, shapes):
+    """The flax parameter tree of `shapes` (jax.eval_shape of the flax init,
+    without the 'params' wrapper) filled with `model`'s parameters through
+    the port's own mapping (convert.flax_to_torch), so that both sides hold
+    the same weights without compiling the flax init."""
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+
+    def fill(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out[k] = fill(v, path + (k,))
+                continue
+            key, kind = flax_to_torch(path + (k,))
+            out[k] = TRANSFORMS[kind](sd[key]).astype(np.float32)
+            assert out[k].shape == v.shape, (key, out[k].shape, v.shape)
+        return out
+
+    return fill(shapes, ())
 
 
 def load(module, sd):
