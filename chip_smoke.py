@@ -25,16 +25,29 @@ prints no result):
                inputs and cotangent: the bf16 outputs (d_value, d_attn) within
                atol = two bf16 ulps of their scale (2 * 2**-7 * max|output|);
                d_loc, f32 in every case, at the f32 tolerance above.
+               K3 (Swin window attention) at the Video-Swin-B shapes of a
+               16 x 360 x 640 clip, a clamped window and a 2D-Swin window:
+               f32 rtol = atol = 2e-5; bf16 against the plain version in f32
+               on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps
+               of the largest expected magnitude.
   4. e2e     — the inference path: Video-Swin-B SOC (d_model 256, 20 queries,
                FFN 2048, 3+3 deformable layers, VOC 3+3, roberta-base, bf16)
                from a seeded random init, InferenceEngine.infer_videos over 3
                videos of 16 x 360 x 640 uint8 frames with one expression each.
+     e2e-k3  — the same workload and weights with swin_attn_impl: pallas,
+               through EnginePool (one engine on the card) and
+               run_videos_pipelined: exactly 24 K3 and 6 K1 launches per clip,
+               no plain window attention or MSDA call; the share of mask
+               pixels on which it differs from phase e2e is reported; one
+               video with pixel_format yuv420 and one with uint8
+               probabilities.
   5. train   — the training path at the same width: Trainer over
                SyntheticRVOSDataset clips of 8 x 360 x 640, batch 1, one epoch
                of 4 steps (the first a warm-up), dropout 0.1, drop path 0.2,
                frozen roberta-base; checkpoint written and read back.
   6. small   — a small SOC in float32 on the card against the same model on
-               the CPU (plain versions), as the reference on a small input.
+               the CPU (plain versions), as the reference on a small input,
+               with swin_attn_impl xla and pallas.
 Every kernel counter is set to 0 just before each path is driven and read
 just after. The second-to-last lines are the card's name/power limit and a
 JSON object of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -55,7 +68,7 @@ import torch.nn.functional as F
 
 from neurips2023_soc_torch.config import load_config
 from neurips2023_soc_torch.data import SyntheticRVOSDataset, iterate_batches
-from neurips2023_soc_torch.inference import InferenceEngine
+from neurips2023_soc_torch.inference import EnginePool, InferenceEngine, run_videos_pipelined
 from neurips2023_soc_torch.losses import compute_criterion, total_loss
 from neurips2023_soc_torch.models import build_model
 from neurips2023_soc_torch.models.common import init_weights
@@ -65,6 +78,10 @@ from neurips2023_soc_torch.models.text_encoder import build_tokenizer
 from neurips2023_soc_torch.ops import _build
 from neurips2023_soc_torch.ops.ms_deform_attn import (ms_deform_attn, ms_deform_attn_torch,
                                                       ms_deform_attn_torch_bwd)
+from neurips2023_soc_torch.ops.window_attention import (mask_from_ids, window_attention,
+                                                        window_attention_ref,
+                                                        window_attention_torch)
+from neurips2023_soc_torch.models.video_swin import _np_window_region_ids
 from neurips2023_soc_torch.training import Trainer
 from neurips2023_soc_torch.training.train_step import TARGET_KEYS, device_batch
 
@@ -73,17 +90,21 @@ ROOT = Path(__file__).resolve().parent
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12  # dense bf16 tensor-core peak
 # the main path's pyramid at 360 x 640 (strides 8, 16, 32, 64)
 LEVELS = ((45, 80), (23, 40), (12, 20), (6, 10))
 B_CLIP, M, D, P = 16, 8, 32, 4
 NUM_VIDEOS, T_CLIP, HEIGHT, WIDTH = 3, 16, 360, 640
 MSDA_PER_CLIP = 6  # 3 encoder + 3 decoder layers
+K3_PER_CLIP = 24  # one per Video-Swin-B block (2 + 2 + 18 + 2), 12 of them shifted
 T_TRAIN, TRAIN_STEPS = 8, 4  # training clip length (window_size), steps
 
 
 def reset_counters() -> None:
     for name in ("launches", "plain_calls", "bwd_launches", "plain_bwd_calls"):
         setattr(ms_deform_attn, name, 0)
+    window_attention.launches = window_attention.plain_calls = 0
+    window_attention_torch.calls = 0
 
 
 def log(msg: str) -> None:
@@ -318,10 +339,160 @@ def check_msda_bwd() -> dict:
                 bound_by=bound_by, **t)
 
 
+# ---------------------------------------------------------------- K3
+def window_geometry(T: int, H: int, W: int, window, shifted: bool):
+    """(B_, N, ids) of one Swin block on a (T, H, W) token grid: padded to
+    the window, clamped where the grid is smaller (JAX _effective_window),
+    region ids when the block is shifted."""
+    win = [min(s, w) for s, w in zip((T, H, W), window)]
+    shift = [0 if s <= w else w // 2 for s, w in zip((T, H, W), window)]
+    Dp, Hp, Wp = (-(-s // w) * w for s, w in zip((T, H, W), win))
+    nW = (Dp // win[0]) * (Hp // win[1]) * (Wp // win[2])
+    N = win[0] * win[1] * win[2]
+    ids = None
+    if shifted and any(shift):
+        ids = _np_window_region_ids(Dp, Hp, Wp, tuple(win), tuple(shift))
+    return nW, N, ids
+
+
+def wattn_inputs(B_, H, N, ids, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B_, H, N, 32, generator=g) for _ in range(3))
+    bias = 0.02 * torch.randn(H, N, N, generator=g)
+    dev = torch.device("cuda")
+    ids_t = None if ids is None else torch.from_numpy(ids).to(dev)
+    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype), bias.to(dev), ids_t)
+
+
+def wattn_bound_ms(q, bias, ids):
+    """Least time for the card: q, k, v read once, the output written once
+    (all in q's dtype), the f32 bias and int32 ids read once, over HBM
+    bandwidth; against 4 N^2 Dh flops per (window, head) (q.k and p.v) over
+    the bf16 tensor-core peak."""
+    B_, H, N, Dh = q.shape
+    nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4 + (
+        0 if ids is None else ids.numel() * 4)
+    flops = 4.0 * B_ * H * N * N * Dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_window_attention() -> dict:
+    """K3 against window_attention_ref on the card at the Video-Swin-B
+    shapes of a 16 x 360 x 640 clip (token grids 16 x 90 x 160, 16 x 23 x 40
+    and 16 x 12 x 20), a clamped window and a 2D-Swin window. f32: rtol = atol
+    = 2e-5 (the JAX suite's). bf16: against the plain version in f32 on the
+    same bf16-rounded inputs, rtol 0 and atol two bf16 ulps of the largest
+    expected magnitude (2 * 2**-7 * max|expected|)."""
+    win = (8, 7, 7)
+    s1 = window_geometry(16, 90, 160, win, True)
+    s3 = window_geometry(16, 23, 40, win, True)
+    s4 = window_geometry(16, 12, 20, win, False)
+    clamp = window_geometry(4, 23, 40, win, True)  # T = 4 < 8: window (4, 7, 7)
+    swin2d = window_geometry(1, 23, 40, (1, 7, 7), True)
+    cases = [  # name, B_, H, (nW, N, ids), dtype
+        ("stage 1 masked bf16", s1[0], 4, s1, torch.bfloat16),
+        ("stage 3 masked bf16", s3[0], 16, s3, torch.bfloat16),
+        ("stage 3 unmasked bf16", s3[0], 16, (s3[0], s3[1], None), torch.bfloat16),
+        ("stage 3 masked f32", s3[0], 16, s3, torch.float32),
+        ("stage 3 unmasked f32", s3[0], 16, (s3[0], s3[1], None), torch.float32),
+        ("stage 4 unmasked f32", s4[0], 32, s4, torch.float32),
+        ("clamped window N=196 masked bf16, B=2", 2 * clamp[0], 8, clamp, torch.bfloat16),
+        ("2D Swin N=49 masked f32", swin2d[0], 4, swin2d, torch.float32),
+    ]
+    report = {}
+    for i, (name, B_, H, (nW, N, ids), dtype) in enumerate(cases):
+        q, k, v, bias, ids_t = wattn_inputs(B_, H, N, ids, dtype, seed=20 + i)
+        with torch.no_grad():
+            got = window_attention(q, k, v, bias, ids_t)
+            torch.cuda.synchronize()
+            want = window_attention_ref(q.float(), k.float(), v.float(), bias, ids_t)
+        if dtype == torch.float32:
+            rtol = atol = 2e-5
+        else:
+            rtol, atol = 0.0, 2 * 2.0 ** -7 * want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"window attention kernel vs plain, {name}: {m}")
+        log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: max_abs_err {err:.3e} "
+            f"(rtol {rtol}, atol {atol:.3e})")
+        report[name] = {"err": err, "inputs": (q, k, v, bias, ids_t)}
+        del got, want
+    timed = {}
+    for name in ("stage 3 masked bf16", "stage 1 masked bf16"):
+        q, k, v, bias, ids_t = report[name]["inputs"]
+        B_, H, N, _ = q.shape
+        nW = ids_t.shape[0]
+        full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
+        full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
+        with torch.no_grad():
+            t = {
+                "ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t)),
+                "plain_ms": time_ms(lambda: window_attention_ref(q, k, v, bias, ids_t),
+                                    iters=10),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=full)),
+            }
+        del full
+        t["bound_ms"], t["bound_by"] = wattn_bound_ms(q, bias, ids_t)
+        log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, SDPA (float mask) {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, bf16 tensor-core peak for "
+            f"operations)")
+        timed[name] = t
+    return dict(name="window_attention_fwd", route="cuda",
+                source="neurips2023_soc_torch/csrc/window_attention_fwd.cu",
+                replaces="neurips2023_soc_tpu/ops/window_attention.py:112",
+                max_abs_err=report["stage 3 masked bf16"]["err"], **timed["stage 3 masked bf16"])
+
+
 # ---------------------------------------------------------------- e2e
+def inference_config(attn_impl: str):
+    return load_config(ROOT / "configs" / "refer_youtube_vos.yaml", overrides={
+        "backbone": "video-swin-b", "compute_dtype": "bfloat16", "swin_attn_impl": attn_impl})
+
+
+def inference_inputs():
+    rng = np.random.RandomState(0)
+    videos = [rng.randint(0, 256, (T_CLIP, HEIGHT, WIDTH, 3)).astype(np.uint8)
+              for _ in range(NUM_VIDEOS)]
+    return videos, ["a person riding a bike", "the dog on the left", "a red car turning"]
+
+
+def check_masks(results) -> None:
+    for (masks,) in results:
+        if masks.shape != (T_CLIP, HEIGHT, WIDTH) or masks.dtype != np.uint8:
+            raise RuntimeError(f"masks {masks.shape} {masks.dtype}")
+        if not set(np.unique(masks).tolist()) <= {0, 1}:
+            raise RuntimeError("masks hold values other than 0 and 1")
+
+
+def clip_timings(model, video, text, tokenizer, tag: str) -> dict:
+    """Finite logits of one clip forward, and CUDA-event times of the whole
+    forward, the backbone and the head."""
+    pad = torch.zeros(T_CLIP, 1, HEIGHT, WIDTH, dtype=torch.bool, device="cuda")
+    px = torch.from_numpy(video).cuda()[:, None].float() / 255.0
+    ids, msk = (torch.from_numpy(a).cuda() for a in tokenizer([text]))
+    with torch.no_grad():
+        out = model(px, pad, ids, msk)
+        for k in ("pred_masks", "pred_cls", "pred_boxes", "pred_logit",
+                  "text_sentence_feature"):
+            if not torch.isfinite(out[k].float()).all():
+                raise RuntimeError(f"non-finite {k}")
+        clip_ms = time_ms(lambda: model(px, pad, ids, msk), iters=5, warmup=1)
+        feats = model.backbone_features(px, pad)
+        backbone_ms = time_ms(lambda: model.backbone_features(px, pad), iters=5, warmup=1)
+        head_ms = time_ms(lambda: model.head(feats, pad, ids, msk), iters=5, warmup=1)
+    device_fps = T_CLIP * 1e3 / clip_ms
+    log(f"[{tag}] logits finite; clip forward {clip_ms:.2f} ms on the device = "
+        f"{1e3 / clip_ms:.3f} clips/s = {device_fps:.2f} frames/s (backbone "
+        f"{backbone_ms:.2f} ms, head {head_ms:.2f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(device_fps=device_fps, backbone_ms=backbone_ms, clip_ms=clip_ms)
+
+
 def main_path() -> dict:
-    cfg = load_config(ROOT / "configs" / "refer_youtube_vos.yaml",
-                      overrides={"backbone": "video-swin-b", "compute_dtype": "bfloat16"})
+    cfg = inference_config("xla")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -329,10 +500,8 @@ def main_path() -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     engine = InferenceEngine(model, text_encoder_type=cfg.text_encoder_type,
                              text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),))
-    rng = np.random.RandomState(0)
-    videos = [rng.randint(0, 256, (T_CLIP, HEIGHT, WIDTH, 3)).astype(np.uint8)
-              for _ in range(NUM_VIDEOS)]
-    texts = ["a person riding a bike", "the dog on the left", "a red car turning"]
+    videos, texts = inference_inputs()
+    torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
     engine.infer_video(videos[0], texts[0])  # warm-up (cuDNN, allocator)
@@ -352,36 +521,95 @@ def main_path() -> dict:
     if plain != 0 or ms_deform_attn.bwd_launches or ms_deform_attn.plain_bwd_calls:
         raise RuntimeError(f"the inference path called the plain MSDA {plain} times "
                            f"or ran a backward")
-    for (masks,) in results:
-        if masks.shape != (T_CLIP, HEIGHT, WIDTH) or masks.dtype != np.uint8:
-            raise RuntimeError(f"masks {masks.shape} {masks.dtype}")
-        if not set(np.unique(masks).tolist()) <= {0, 1}:
-            raise RuntimeError("masks hold values other than 0 and 1")
+    if window_attention.launches or window_attention.plain_calls \
+            or window_attention_torch.calls != K3_PER_CLIP * NUM_VIDEOS:
+        raise RuntimeError("swin_attn_impl xla: expected only window_attention_torch, "
+                           f"{K3_PER_CLIP} calls per clip")
+    check_masks(results)
     engine_fps = NUM_VIDEOS * T_CLIP / wall
     log(f"[e2e] infer_videos: {NUM_VIDEOS} videos x {T_CLIP} frames in {wall:.3f} s "
         f"= {engine_fps:.2f} frames/s; MSDA launches {launches}, plain calls {plain}; "
         f"mask foreground share {np.mean([m.mean() for (m,) in results]):.4f}")
 
-    # the logits of one clip forward, and the device time of the forward
-    pad = torch.zeros(T_CLIP, 1, HEIGHT, WIDTH, dtype=torch.bool, device="cuda")
-    px = torch.from_numpy(videos[0]).cuda()[:, None].float() / 255.0
-    ids, msk = (torch.from_numpy(a).cuda() for a in engine.tokenizer([texts[0]]))
-    with torch.no_grad():
-        out = model(px, pad, ids, msk)
-        for k in ("pred_masks", "pred_cls", "pred_boxes", "pred_logit",
-                  "text_sentence_feature"):
-            if not torch.isfinite(out[k].float()).all():
-                raise RuntimeError(f"non-finite {k}")
-        clip_ms = time_ms(lambda: model(px, pad, ids, msk), iters=5, warmup=1)
-        feats = model.backbone_features(px, pad)
-        backbone_ms = time_ms(lambda: model.backbone_features(px, pad), iters=5, warmup=1)
-        head_ms = time_ms(lambda: model.head(feats, pad, ids, msk), iters=5, warmup=1)
-    device_fps = T_CLIP * 1e3 / clip_ms
-    log(f"[e2e] logits finite; clip forward {clip_ms:.2f} ms on the device = "
-        f"{1e3 / clip_ms:.3f} clips/s = {device_fps:.2f} frames/s (backbone "
-        f"{backbone_ms:.2f} ms, head {head_ms:.2f} ms); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return dict(launches=launches, engine_fps=engine_fps, device_fps=device_fps)
+    timings = clip_timings(model, videos[0], texts[0], engine.tokenizer, "e2e")
+    return dict(launches=launches, engine_fps=engine_fps,
+                masks=[m for (m,) in results], **timings)
+
+
+def k3_path(e2e: dict) -> dict:
+    """Phase e2e's workload and weights with swin_attn_impl: pallas, through
+    EnginePool (one engine on card 0) and run_videos_pipelined; raises unless
+    every clip ran exactly 24 K3 and 6 K1 launches and nothing ran the plain
+    window attention (either version) or the plain MSDA."""
+    cfg = inference_config("pallas")
+    torch.cuda.reset_peak_memory_stats()
+    pool = EnginePool(build_model(cfg, device="cuda", seed=0),
+                      devices=[torch.device("cuda", 0)],
+                      text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
+                      size_buckets=((HEIGHT, WIDTH),))
+    engine = pool.engines[0]
+    videos, texts = inference_inputs()
+    t0 = time.perf_counter()
+    engine.infer_video(videos[0], texts[0])  # warm-up
+    torch.cuda.synchronize()
+    log(f"[e2e-k3] EnginePool of {len(pool.engines)} engine; warm-up video in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def counts():
+        return dict(k3=window_attention.launches, k3_plain=window_attention.plain_calls,
+                    xla_attn=window_attention_torch.calls, k1=ms_deform_attn.launches,
+                    k1_plain=ms_deform_attn.plain_calls)
+
+    def expect(clips: int, tag: str) -> dict:
+        got = counts()
+        want = dict(k3=K3_PER_CLIP * clips, k3_plain=0, xla_attn=0,
+                    k1=MSDA_PER_CLIP * clips, k1_plain=0)
+        if got != want:
+            raise RuntimeError(f"{tag}: kernel counts {got}, expected {want}")
+        return got
+
+    items = [dict(frames=v, text=t) for v, t in zip(videos, texts)]
+    reset_counters()
+    t0 = time.perf_counter()
+    results = run_videos_pipelined(pool, items,
+                                   lambda it: dict(frames=it["frames"], texts=[it["text"]]),
+                                   lambda it, res: res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = expect(NUM_VIDEOS, "run_videos_pipelined")
+    check_masks(results)
+    engine_fps = NUM_VIDEOS * T_CLIP / wall
+    differ = float(np.mean([np.mean(m != e) for (m,), e in zip(results, e2e["masks"])]))
+    log(f"[e2e-k3] run_videos_pipelined: {NUM_VIDEOS} videos x {T_CLIP} frames in "
+        f"{wall:.3f} s = {engine_fps:.2f} frames/s; counts {got}; mask pixels that differ "
+        f"from phase e2e (xla window attention, same weights): {differ:.6f}")
+
+    # one video with YUV420 input, one with uint8 probabilities
+    yuv = InferenceEngine(engine.model, text_encoder_type=cfg.text_encoder_type,
+                          text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),),
+                          pixel_format="yuv420")
+    reset_counters()
+    check_masks([(yuv.infer_video(videos[1], texts[1]),)])
+    expect(1, "pixel_format yuv420")
+    u8 = InferenceEngine(engine.model, text_encoder_type=cfg.text_encoder_type,
+                         text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),),
+                         probs_dtype="uint8")
+    reset_counters()
+    probs = u8.infer_video(videos[2], texts[2], return_probs=True)
+    expect(1, "probs_dtype uint8")
+    steps = probs * 255.0
+    if probs.shape != (T_CLIP, HEIGHT, WIDTH) or probs.dtype != np.float32 \
+            or probs.min() < 0.0 or probs.max() > 1.0 \
+            or np.abs(steps - np.round(steps)).max() > 1e-3:
+        raise RuntimeError(f"uint8 probabilities: {probs.shape} {probs.dtype} in "
+                           f"[{probs.min()}, {probs.max()}]")
+    log(f"[e2e-k3] yuv420 video: masks {(T_CLIP, HEIGHT, WIDTH)} in {{0, 1}}; uint8 "
+        f"probabilities: float32 {probs.shape} in [{probs.min():.4f}, {probs.max():.4f}], "
+        f"multiples of 1/255; 24 K3 + 6 K1 launches each")
+
+    timings = clip_timings(engine.model, videos[0], texts[0], engine.tokenizer, "e2e-k3")
+    return dict(launches=got["k3"], k1_launches=got["k1"], engine_fps=engine_fps,
+                differ=differ, **timings)
 
 
 def train_path(smi: str, out_dir: str) -> dict:
@@ -490,11 +718,13 @@ def train_path(smi: str, out_dir: str) -> dict:
                 step_ms=step_ms)
 
 
-def small_reference() -> None:
-    """A small float32 SOC on the card against the same weights on the CPU."""
+def small_reference(attn_impl: str) -> None:
+    """A small float32 SOC on the card against the same weights on the CPU
+    (plain versions: window_attention_torch for xla, window_attention_ref
+    for pallas)."""
     kw = dict(backbone_name="video-swin-t", d_model=64, num_queries=5,
               dim_feedforward=128, enc_layers=1, dec_layers=2, voc_enc_layers=1,
-              voc_dec_layers=1, text_encoder_type="roberta-tiny")
+              voc_dec_layers=1, text_encoder_type="roberta-tiny", swin_attn_impl=attn_impl)
     cpu = init_weights(SOC(**kw), torch.Generator().manual_seed(1)).eval()
     gpu = init_weights(SOC(**kw), torch.Generator().manual_seed(1)).cuda().eval()
     rng = np.random.RandomState(1)
@@ -503,13 +733,22 @@ def small_reference() -> None:
     pad[:, 1, 40:] = True
     ids = torch.from_numpy(rng.randint(3, 1000, (2, 8)).astype(np.int32))
     msk = torch.ones(2, 8, dtype=torch.int32)
+    reset_counters()
     with torch.no_grad():
         want = cpu(px, pad, ids, msk)
         got = gpu(px.cuda(), pad.cuda(), ids.cuda(), msk.cuda())
+    blocks = 12  # video-swin-t: 2 + 2 + 6 + 2
+    expected = {"xla": (0, 0, 2 * blocks), "pallas": (blocks, blocks, 0)}[attn_impl]
+    seen = (window_attention.launches, window_attention.plain_calls,
+            window_attention_torch.calls)
+    if seen != expected:
+        raise RuntimeError(f"small SOC {attn_impl}: window attention (kernel, ref, torch) "
+                           f"calls {seen}, expected {expected}")
     for k in ("pred_masks", "pred_cls", "pred_boxes", "pred_logit"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3,
-                                   msg=lambda m: f"small SOC cuda vs cpu, {k}: {m}")
-    log("[small] SOC video-swin-t d_model 64 f32: card == CPU within 1e-3")
+                                   msg=lambda m: f"small SOC {attn_impl} cuda vs cpu, {k}: {m}")
+    log(f"[small] SOC video-swin-t d_model 64 f32, swin_attn_impl {attn_impl}: card == CPU "
+        f"within 1e-3 (window attention kernel / ref / torch calls {seen})")
 
 
 def main() -> int:
@@ -531,19 +770,30 @@ def main() -> int:
 
     k1 = check_msda()
     k2 = check_msda_bwd()
+    k3 = check_window_attention()
     e2e = main_path()
     k1["launches"] = e2e["launches"]
     log(f"[e2e] {smi}: device {e2e['device_fps']:.2f} frames/s, engine "
-        f"{e2e['engine_fps']:.2f} frames/s (Video-Swin-B bf16, 16 x {HEIGHT} x {WIDTH})")
+        f"{e2e['engine_fps']:.2f} frames/s, backbone {e2e['backbone_ms']:.2f} ms "
+        f"(Video-Swin-B bf16, 16 x {HEIGHT} x {WIDTH}, swin_attn_impl xla)")
+    e2e_k3 = k3_path(e2e)
+    del e2e["masks"]
+    k3["launches"] = e2e_k3["launches"]
+    log(f"[e2e-k3] {smi}: device {e2e_k3['device_fps']:.2f} frames/s, engine "
+        f"{e2e_k3['engine_fps']:.2f} frames/s, backbone {e2e_k3['backbone_ms']:.2f} ms "
+        f"(swin_attn_impl pallas) beside phase e2e's {e2e['device_fps']:.2f} / "
+        f"{e2e['engine_fps']:.2f} frames/s, {e2e['backbone_ms']:.2f} ms; masks differ on "
+        f"{e2e_k3['differ']:.6f} of the pixels")
     with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
         train = train_path(smi, out_dir)
     k2["launches"] = train["bwd_launches"]
-    small_reference()
+    small_reference("xla")
+    small_reference("pallas")
 
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2)]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,17 +2,20 @@
 for NVIDIA Hopper (H100).
 
 The layout mirrors the JAX package, module for module:
-  ops/        — MSDA (plain versions + hand-written CUDA kernels), exact resizes,
-                window attention
+  ops/        — MSDA and Swin window attention (plain versions + hand-written
+                CUDA kernels K1, K2, K3), exact resizes
   csrc/       — CUDA C++ kernel sources, built with nvcc at first use
-  utils/      — box math, size/time buckets, metric logging, prefetch
+  utils/      — box math, size/time buckets, metric logging, prefetch, overlays
   models/     — Video-Swin, RoBERTa, fusion, deformable transformer, VOC, heads
   losses/     — Hungarian matcher (exact on-device LAP), criterion, mask losses
   training/   — optax-semantics optimizer, train step, checkpoints, Trainer
-  data/       — synthetic dataset and collation
-  config.py   — YAML config loading (the same configs/*.yaml)
+  data/       — synthetic dataset, collation, Ref-YouTube-VOS, video transforms
+  parallel/   — torch.distributed start-up, rank-0 and barrier helpers
+  cli/        — infer_refytb, demo_video, predict
+  config.py   — YAML config loading (the same configs/*.yaml) and CLI flags
   convert.py  — JAX parameter tree -> this package's state_dict
-  inference.py — whole-video referring inference engine
+  inference.py — whole-video referring inference engine, EnginePool, save helpers
+  evaluators.py — Ref-YouTube-VOS valid-set submission
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 The package imports neither JAX nor the JAX package.

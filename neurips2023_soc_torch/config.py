@@ -8,6 +8,7 @@ Usage:
 """
 from __future__ import annotations
 
+import argparse
 import copy
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
@@ -76,3 +77,34 @@ def load_config(path: str | Path,
         if v is not None:
             data[k] = v
     return Config(data)
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The CLI flags every entry point shares (reference main.py:61-97); each
+    given flag overrides the config key of its name."""
+    parser.add_argument("--config_path", "-c", required=True)
+    parser.add_argument("--running_mode", "-rm", default="train",
+                        choices=["train", "test", "resume_train", "pred", "infer"])
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--batch_size", "-bs", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--lr_drop", type=int, nargs="+", default=None)
+    parser.add_argument("--window_size", "-ws", type=int, default=None)
+    parser.add_argument("--pretrained_weights", "-pw", default=None)
+    parser.add_argument("--backbone", "-b", default=None)
+    parser.add_argument("--backbone_pretrained_path", "-bpp", default=None)
+    parser.add_argument("--checkpoint_path", "-ckpt", default=None)
+    parser.add_argument("--output_dir", default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--num_devices", type=int, default=None)
+    parser.add_argument("--version", default=None)
+    parser.add_argument(
+        "--grad_accum_steps", type=int, default=None,
+        help="micro-batches averaged per optimizer update (effective global "
+             "batch = batch_size * grad_accum_steps)")
+    return parser
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    overrides = {k: v for k, v in vars(args).items() if k != "config_path"}
+    return load_config(args.config_path, overrides=overrides)

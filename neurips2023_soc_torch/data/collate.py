@@ -34,6 +34,13 @@ def normalize_frames(frames: np.ndarray) -> np.ndarray:
     return (x - IMAGENET_MEAN) / IMAGENET_STD
 
 
+def frames_to_uint8(frames) -> np.ndarray:
+    """[0, 1] float frames (exact u8 / 255 values out of the resize) -> raw
+    uint8 pixels for the engine, which normalizes them on the device
+    (inference._normalize_u8_in_graph)."""
+    return np.round(np.stack(frames) * 255.0).astype(np.uint8)
+
+
 def collate_batch(samples: List[Dict], tokenizer, max_instances: int = 1,
                   size_buckets=DEFAULT_SIZE_BUCKETS, time_buckets=DEFAULT_TIME_BUCKETS,
                   with_targets: bool = True) -> Dict[str, np.ndarray]:

@@ -21,12 +21,24 @@ soon as a dispatch returns.
 Time buckets reach 64 frames, so typical Ref-YouTube-VOS videos run in one
 forward and VOC clusters over the whole video; longer videos are chunked.
 
-Not ported yet: YUV420 input, the probability wire formats, EnginePool,
-shard_videos and the YTVOS/DAVIS save helpers.
+Frames come as uint8 RGB, float32 normalized, or (y, u, v) YUV420p planes
+(converted on the device; `pixel_format="yuv420"` converts uint8 RGB on the
+host first, half the upload). Probabilities can travel as float32, bfloat16
+or uint8 (`probs_dtype`) and are float32 in [0, 1] for the caller.
+
+Several cards: `EnginePool` holds one engine per CUDA device, each with its
+own replica of the model, and `run_videos_pipelined` feeds them from one
+thread each; `shard_videos` splits a video list over the processes of a
+torch.distributed run.
 """
 from __future__ import annotations
 
+import copy
+import zipfile
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,9 +48,13 @@ from .data.collate import IMAGENET_MEAN, IMAGENET_STD
 from .device import resolve_device
 from .models.text_encoder import build_tokenizer
 from .ops import resize_bilinear
-from .utils.padded import pick_size_bucket, pick_time_bucket
+from .utils.padded import eval_size_buckets, pick_size_bucket, pick_time_bucket  # noqa: F401
 
 DEFAULT_TIME_BUCKETS = (8, 16, 32, 64)
+PIXEL_FORMATS = ("auto", "yuv420")
+PROBS_DTYPES = ("float32", "bfloat16", "uint8")
+# DAVIS palette (indices 0..N map through the standard DAVIS colormap)
+DAVIS_PALETTE = b"\x00\x00\x00\x80\x00\x00\x00\x80\x00\x80\x80\x00\x00\x00\x80\x80\x00\x80\x00\x80\x80\x80\x80\x80\x40\x00\x00\xc0\x00\x00\x40\x80\x00\xc0\x80\x00\x40\x00\x80\xc0\x00\x80\x40\x80\x80\xc0\x80\x80"
 
 
 def _normalize_u8_in_graph(pixels: torch.Tensor, pad_mask: torch.Tensor,
@@ -49,14 +65,57 @@ def _normalize_u8_in_graph(pixels: torch.Tensor, pad_mask: torch.Tensor,
     return x.masked_fill(pad_mask[..., None], 0.0)
 
 
+def _yuv420_to_normalized(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                          pad_mask: torch.Tensor, mean: torch.Tensor,
+                          std: torch.Tensor) -> torch.Tensor:
+    """YUV420p planes -> ImageNet-normalized RGB float32, zeroed on padding.
+    y: (T, B, H, W) uint8; u, v: (T, B, H/2, W/2) uint8, JFIF full-range
+    BT.601 (the convention of JPEG and of `rgb_to_yuv420`); chroma is
+    upsampled 2x nearest."""
+    yf = y.float()
+    uf = u.float().repeat_interleave(2, -2).repeat_interleave(2, -1) - 128.0
+    vf = v.float().repeat_interleave(2, -2).repeat_interleave(2, -1) - 128.0
+    r = yf + 1.402 * vf
+    g = yf - 0.344136 * uf - 0.714136 * vf
+    b = yf + 1.772 * uf
+    rgb = torch.stack([r, g, b], -1).clamp(0.0, 255.0) / 255.0
+    x = (rgb - mean) / std
+    return x.masked_fill(pad_mask[..., None], 0.0)
+
+
+def rgb_to_yuv420(frames: np.ndarray):
+    """Host-side RGB -> YUV420p (JFIF full-range BT.601, 2x2 box-averaged
+    chroma). frames: (T, h, w, 3) uint8. Returns (y, u, v) uint8 planes with
+    u/v at ceil(h/2) x ceil(w/2). For RGB sources this is a lossy 4:2:0
+    subsample; frames decoded from a video codec already are YUV420."""
+    f = frames.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    yp = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    T, h, w = yp.shape
+    ph, pw = (-h) % 2, (-w) % 2
+    if ph or pw:  # edge-replicate to even dims before 2x2 averaging
+        cb = np.pad(cb, ((0, 0), (0, ph), (0, pw)), mode="edge")
+        cr = np.pad(cr, ((0, 0), (0, ph), (0, pw)), mode="edge")
+    cb = cb.reshape(T, (h + ph) // 2, 2, (w + pw) // 2, 2).mean((2, 4))
+    cr = cr.reshape(T, (h + ph) // 2, 2, (w + pw) // 2, 2).mean((2, 4))
+
+    def to_u8(a):
+        return np.clip(np.rint(a), 0, 255).astype(np.uint8)
+
+    return to_u8(yp), to_u8(cb), to_u8(cr)
+
+
 def _finalize_masks(logits: torch.Tensor, q: torch.Tensor, *, H: int, W: int,
                     fh: int, fw: int, oh: int, ow: int, want_probs: bool,
-                    pack: bool) -> torch.Tensor:
+                    pack: bool, probs_dtype: str = "float32") -> torch.Tensor:
     """Gather query `q`'s stride-4 logits (T, Nq, h4, w4), upsample to the
     (H, W) bucket, crop to the resized content, resize to the original frame
     size, sigmoid, and threshold at 0.5 unless probabilities are wanted. With
     `pack`, masks are bit-packed 8 pixels/byte along width (np.unpackbits
-    layout, MSB first)."""
+    layout, MSB first). Probabilities travel as `probs_dtype`: float32,
+    bfloat16 (2 B/px) or uint8 (1 B/px, prob * 255 rounded)."""
     sel = logits.index_select(1, q.view(1))[:, 0].float()
     up = resize_bilinear(sel[..., None], H, W)[..., 0]
     content = up[:, :fh, :fw]
@@ -64,6 +123,10 @@ def _finalize_masks(logits: torch.Tensor, q: torch.Tensor, *, H: int, W: int,
         content = resize_bilinear(content[..., None], oh, ow)[..., 0]
     prob = torch.sigmoid(content.clamp(-30.0, 30.0))
     if want_probs:
+        if probs_dtype == "bfloat16":
+            return prob.to(torch.bfloat16)
+        if probs_dtype == "uint8":
+            return torch.round(prob * 255.0).to(torch.uint8)
         return prob
     mask = (prob > 0.5).to(torch.uint8)
     if not pack:
@@ -143,10 +206,26 @@ class InferenceEngine:
     def __init__(self, model: torch.nn.Module, text_encoder_type: str = "roberta-base",
                  text_bucket: int = 32, time_buckets: Optional[Sequence[int]] = None,
                  size_buckets=((360, 640),), pack_masks: bool = True,
+                 pixel_format: str = "auto", probs_dtype: str = "float32",
                  device: Optional[Union[str, torch.device]] = None):
         """Runs `model` (an SOC) on `device`, the CUDA card when None
         (RuntimeError without CUDA). pack_masks bit-packs thresholded masks
-        on the device (8 pixels/byte) and unpacks them after the fetch."""
+        on the device (8 pixels/byte) and unpacks them after the fetch.
+
+        pixel_format: 'auto' takes what the caller passes (float32
+        normalized, uint8 RGB, or a (y, u, v) tuple of YUV420p planes);
+        'yuv420' also converts uint8 RGB frames to YUV420p on the host
+        (rgb_to_yuv420) before the upload, half the bytes, at the cost of
+        4:2:0 chroma subsampling.
+
+        probs_dtype: the wire format of return_probs results, 'float32'
+        (exact), 'bfloat16' or 'uint8' (prob * 255 rounded); the caller
+        always gets float32 in [0, 1]."""
+        if pixel_format not in PIXEL_FORMATS:
+            raise ValueError(f"unknown pixel_format: {pixel_format!r}")
+        if probs_dtype not in PROBS_DTYPES:
+            raise ValueError(f"unknown probs_dtype: {probs_dtype!r}")
+        self.pixel_format, self.probs_dtype = pixel_format, probs_dtype
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = build_tokenizer(text_encoder_type, text_bucket)
@@ -169,23 +248,38 @@ class InferenceEngine:
             self._pad_cache[key] = pad
         return pad
 
-    def _pixel_buffer(self, clip: np.ndarray, T: int, H: int, W: int,
-                      fh: int, fw: int) -> torch.Tensor:
-        """Bucket-padded (T, 1, H, W, 3) pixels on the device. The clip is
-        copied into an engine-owned buffer; padded frames repeat the last
-        frame's content."""
-        t = clip.shape[0]
-        exact = t == T and fh == H and fw == W
+    def _pixel_buffer(self, clip, T: int, H: int, W: int,
+                      fh: int, fw: int):
+        """Bucket-padded (T, 1, H, W, 3) pixels on the device, or for a
+        (y, u, v) clip the three (T, 1, h, w) planes (chroma at half the
+        bucket). The clip is copied into engine-owned buffers; padded frames
+        repeat the last frame's content."""
+        if isinstance(clip, tuple):
+            yc, uc, vc = clip
+            return (self._plane(yc, T, H, W, fh, fw),
+                    self._plane(uc, T, H // 2, W // 2, (fh + 1) // 2, (fw + 1) // 2),
+                    self._plane(vc, T, H // 2, W // 2, (fh + 1) // 2, (fw + 1) // 2))
+        dtype = torch.uint8 if clip.dtype == np.uint8 else torch.float32
+        return self._staging.upload((T, 1, H, W, 3), dtype,
+                                    self._filler(clip, T, H, W, fh, fw))
+
+    def _plane(self, c: np.ndarray, T: int, h: int, w: int, ch: int, cw: int):
+        return self._staging.upload((T, 1, h, w), torch.uint8,
+                                    self._filler(c, T, h, w, ch, cw))
+
+    @staticmethod
+    def _filler(c: np.ndarray, T: int, h: int, w: int, ch: int, cw: int):
+        t = c.shape[0]
+        exact = t == T and ch == h and cw == w
 
         def fill(buf):
             if not exact:
                 buf.fill(0)
-            buf[:t, 0, :fh, :fw] = clip
+            buf[:t, 0, :ch, :cw] = c
             if t < T:
-                buf[t:, 0, :fh, :fw] = clip[-1]
+                buf[t:, 0, :ch, :cw] = c[-1]
 
-        dtype = torch.uint8 if clip.dtype == np.uint8 else torch.float32
-        return self._staging.upload((T, 1, H, W, 3), dtype, fill)
+        return fill
 
     def _tokens(self, text: str):
         """Token ids and mask (1, S) on the device. On CUDA they ride pinned
@@ -200,12 +294,13 @@ class InferenceEngine:
         return out
 
     # ---------------- per-video inference ----------------
-    def infer_video(self, frames: np.ndarray, text: str,
+    def infer_video(self, frames, text: str,
                     original_size: Optional[Tuple[int, int]] = None,
                     return_probs: bool = False, trajectory: str = "video",
                     return_boxes: bool = False):
-        """frames: (T, h, w, 3) uint8 RGB (normalized on the device) or
-        float32 ImageNet-normalized, resized and unpadded.
+        """frames: (T, h, w, 3) uint8 RGB (normalized on the device),
+        float32 ImageNet-normalized, or a (y, u, v) tuple of uint8 YUV420p
+        planes (converted and normalized on the device); resized, unpadded.
 
         trajectory='video': one query chosen from the whole-video mean score;
         'chunk': chosen again for every chunk.
@@ -217,7 +312,7 @@ class InferenceEngine:
                                       return_probs=return_probs, trajectory=trajectory,
                                       return_boxes=return_boxes)[0]
 
-    def infer_video_multi(self, frames: np.ndarray, texts: Sequence[str],
+    def infer_video_multi(self, frames, texts: Sequence[str],
                           original_size: Optional[Tuple[int, int]] = None,
                           return_probs: bool = False, trajectory: str = "video",
                           return_boxes: bool = False) -> List:
@@ -243,7 +338,7 @@ class InferenceEngine:
             yield self._collect_video(pending.popleft())
 
     @torch.no_grad()
-    def _dispatch_video(self, frames: np.ndarray, texts: Sequence[str],
+    def _dispatch_video(self, frames, texts: Sequence[str],
                         original_size: Optional[Tuple[int, int]] = None,
                         return_probs: bool = False, trajectory: str = "video",
                         return_boxes: bool = False) -> dict:
@@ -252,11 +347,24 @@ class InferenceEngine:
         if trajectory not in ("video", "chunk"):
             raise ValueError(f"unknown trajectory: {trajectory!r} "
                              "(expected 'video' or 'chunk')")
-        if not isinstance(frames, np.ndarray) or frames.ndim != 4 \
+        if (self.pixel_format == "yuv420" and isinstance(frames, np.ndarray)
+                and frames.dtype == np.uint8):
+            frames = rgb_to_yuv420(frames)
+        yuv = isinstance(frames, (tuple, list))
+        if yuv:
+            frames = tuple(frames)
+            if len(frames) != 3 or any(p.dtype != np.uint8 or p.ndim != 3 for p in frames):
+                raise ValueError("YUV420 frames must be (y, u, v) uint8 planes (T, h, w)")
+            T_total, fh, fw = frames[0].shape
+        elif not isinstance(frames, np.ndarray) or frames.ndim != 4 \
                 or frames.dtype not in (np.uint8, np.float32):
-            raise ValueError("frames must be a (T, h, w, 3) uint8 or float32 array")
-        T_total, fh, fw, _ = frames.shape
+            raise ValueError("frames must be a (T, h, w, 3) uint8 or float32 array or "
+                             "a (y, u, v) tuple of uint8 planes")
+        else:
+            T_total, fh, fw, _ = frames.shape
         H, W = pick_size_bucket(fh, fw, self.size_buckets)
+        if yuv and (H % 2 or W % 2):
+            raise ValueError(f"YUV420 input needs even size buckets, got ({H}, {W})")
         oh, ow = (int(s) for s in (original_size or (fh, fw)))
         chunk = max(self.time_buckets)
         toks = [self._tokens(t) for t in texts]
@@ -265,12 +373,18 @@ class InferenceEngine:
         # per chunk: [(score sum over real frames, logits, boxes) per text], t
         chunks = []
         for start in range(0, T_total, chunk):
-            clip = frames[start:start + chunk]
-            t = clip.shape[0]
+            if yuv:
+                clip = tuple(p[start:start + chunk] for p in frames)
+                t = clip[0].shape[0]
+            else:
+                clip = frames[start:start + chunk]
+                t = clip.shape[0]
             T = pick_time_bucket(t, self.time_buckets)
             pixels = self._pixel_buffer(clip, T, H, W, fh, fw)
             pad = self._get_pad(T, H, W, fh, fw)
-            if pixels.dtype == torch.uint8:
+            if yuv:
+                pixels = _yuv420_to_normalized(*pixels, pad, self._mean, self._std)
+            elif pixels.dtype == torch.uint8:
                 pixels = _normalize_u8_in_graph(pixels, pad, self._mean, self._std)
             feats = model.backbone_features(pixels, pad)
             outs = []
@@ -280,7 +394,8 @@ class InferenceEngine:
             chunks.append((outs, t))
 
         stat = dict(H=H, W=W, fh=fh, fw=fw, oh=oh, ow=ow, want_probs=return_probs,
-                    pack=self.pack_masks and not return_probs)
+                    pack=self.pack_masks and not return_probs,
+                    probs_dtype=self.probs_dtype)
         results = []
         for k in range(len(texts)):
             qs = _select_in_graph([outs[k][0] for outs, _ in chunks], trajectory)
@@ -307,18 +422,25 @@ class InferenceEngine:
         oh, ow = handle["oh"], handle["ow"]
         out = []
         for masks, boxes in handle["results"]:
-            m = masks.numpy()
             if handle["return_probs"]:
-                m = m.astype(np.float32, copy=True)
+                m = _probs_to_host(masks)
             elif self.pack_masks:
-                m = np.unpackbits(m, axis=-1)[:, :, :ow]
+                m = np.unpackbits(masks.numpy(), axis=-1)[:, :, :ow]
             else:
-                m = m.copy()
+                m = masks.numpy().copy()
             if handle["return_boxes"]:
                 out.append((m, _cxcywh_to_xyxy_pixels(boxes.numpy(), oh, ow)))
             else:
                 out.append(m)
         return out
+
+
+def _probs_to_host(probs: torch.Tensor) -> np.ndarray:
+    """Fetched probabilities in their wire format (float32, bfloat16, or
+    uint8 = prob * 255 rounded) -> a float32 array in [0, 1] of its own."""
+    if probs.dtype == torch.uint8:
+        return probs.numpy().astype(np.float32) / 255.0
+    return probs.float().numpy().astype(np.float32, copy=True)
 
 
 def _cxcywh_to_xyxy_pixels(boxes: np.ndarray, oh: int, ow: int) -> np.ndarray:
@@ -330,3 +452,159 @@ def _cxcywh_to_xyxy_pixels(boxes: np.ndarray, oh: int, ow: int) -> np.ndarray:
     xyxy[:, 0::2] = xyxy[:, 0::2].clip(0, ow)
     xyxy[:, 1::2] = xyxy[:, 1::2].clip(0, oh)
     return xyxy
+
+
+class EnginePool:
+    """One InferenceEngine per CUDA device, each with its own deep-copied
+    replica of the model on its device; videos are fanned out over one host
+    thread per engine. `devices=None` means every visible card. The JAX
+    package's `_local_replica` (pulling the local shard out of parameters
+    replicated over several hosts) has no counterpart: a torch model lives in
+    one process, and its replicas are copies."""
+
+    def __init__(self, model: torch.nn.Module, devices=None, **engine_kwargs):
+        if devices is None:
+            resolve_device(None)  # RuntimeError without CUDA
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("EnginePool needs at least one device")
+        self._params_src = None
+        self.engines = [InferenceEngine(copy.deepcopy(model), device=d, **engine_kwargs)
+                        for d in self.devices]
+
+    def update_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Load `state_dict` (e.g. the trainer's current weights) into every
+        replica, strictly; a no-op when it is the very object loaded last."""
+        if state_dict is self._params_src:
+            return
+        self._params_src = state_dict
+        for eng in self.engines:
+            eng.model.load_state_dict(state_dict, strict=True)
+
+    def map_videos(self, items: Sequence, fn) -> List:
+        """fn(engine, item) -> result; results in input order. Item i goes to
+        engine i % n, the same interleaved split as shard_videos."""
+        n = len(self.engines)
+        if n == 1 or len(items) <= 1:
+            return [fn(self.engines[0], it) for it in items]
+        results: List = [None] * len(items)
+
+        def worker(e: int):
+            eng = self.engines[e]
+            with _on_device(eng.device):
+                for i in range(e, len(items), n):
+                    results[i] = fn(eng, items[i])
+
+        _run_workers(worker, min(n, len(items)))
+        return results
+
+
+def _on_device(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+
+def _run_workers(worker, n: int) -> None:
+    """worker(0..n-1) on n threads; re-raises the first worker's exception."""
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        for f in [ex.submit(worker, e) for e in range(n)]:
+            f.result()
+
+
+def run_videos_pipelined(engine_or_pool, items: Sequence, item_fn, post_fn) -> List:
+    """Depth-1 pipelined per-video work over one InferenceEngine or an
+    EnginePool (item i -> engine i % n). Per engine, video i+1's work is
+    queued before video i's masks are fetched (InferenceEngine.infer_videos),
+    so the next item's decode inside item_fn and this item's PNG writes
+    inside post_fn overlap the device.
+
+    item_fn(item) -> kwargs of infer_video_multi (side data for post_fn may
+    be stashed on the item: each item is touched by one thread);
+    post_fn(item, results) -> stored value. Returns post_fn's values in input
+    order."""
+    engines = (engine_or_pool.engines if isinstance(engine_or_pool, EnginePool)
+               else [engine_or_pool])
+    n = len(engines)
+    results: List = [None] * len(items)
+
+    def worker(e: int):
+        eng = engines[e]
+        idxs = list(range(e, len(items), n))
+        with _on_device(eng.device):
+            gen = (item_fn(items[i]) for i in idxs)
+            for i, res in zip(idxs, eng.infer_videos(gen, depth=1)):
+                results[i] = post_fn(items[i], res)
+
+    if n == 1 or len(items) <= 1:
+        worker(0)
+    else:
+        _run_workers(worker, min(n, len(items)))
+    return results
+
+
+def shard_videos(items: List, num_shards: Optional[int] = None,
+                 shard_id: Optional[int] = None) -> List:
+    """This process's interleaved share of `items`: rank and world size from
+    torch.distributed when it is initialized, else (0, 1)."""
+    dist = torch.distributed
+    up = dist.is_available() and dist.is_initialized()
+    num_shards = num_shards or (dist.get_world_size() if up else 1)
+    shard_id = shard_id if shard_id is not None else (dist.get_rank() if up else 0)
+    return items[shard_id::num_shards]
+
+
+def save_ytvos_predictions(preds_by_video: List[Dict], out_dir: str):
+    """Per-frame PNG masks in the competition layout
+    Annotations/<video>/<exp>/<frame>.png (reference infer_refytb.py:230-277)."""
+    from PIL import Image
+
+    out = Path(out_dir)
+    for pred in preds_by_video:
+        d = out / "Annotations" / pred["video_id"] / pred["exp_id"]
+        d.mkdir(parents=True, exist_ok=True)
+        for frame_idx, mask in zip(pred["frame_indices"], pred["pred_masks"]):
+            Image.fromarray((mask * 255).astype(np.uint8)).save(d / f"{frame_idx}.png")
+
+
+def zip_submission(out_dir: str, zip_name: str = "submission.zip"):
+    """Zip Annotations/ for the competition server (reference trainer.py:344-350)."""
+    out = Path(out_dir)
+    zpath = out / zip_name
+    with zipfile.ZipFile(zpath, "w", zipfile.ZIP_DEFLATED) as zf:
+        for p in sorted((out / "Annotations").rglob("*.png")):
+            zf.write(p, p.relative_to(out))
+    return str(zpath)
+
+
+def group_davis_annotator_order(items: List) -> List:
+    """Reorder a video's expressions (sorted by exp id, object-major:
+    exp = obj * 4 + anno) into annotator-major order [a0o0, a0o1, ..., a1o0,
+    ...], so a sequential consumer groups each annotation variant's objects
+    together (reference infer_davis.py:199)."""
+    num_obj, rem = divmod(len(items), 4)
+    if rem:
+        raise ValueError(f"expected 4 annotation variants per object, got {len(items)} "
+                         "expressions")
+    return [items[obj * 4 + anno] for anno in range(4) for obj in range(num_obj)]
+
+
+def merge_davis_annotator(prob_masks: List[np.ndarray]) -> np.ndarray:
+    """Per-object probability masks (a list over objects of (T, H, W) in
+    [0, 1]) -> index masks, with a 0.1 background channel (reference
+    infer_davis.py:263-275)."""
+    anno = np.stack(prob_masks)
+    anno = np.where(anno < 0.5, 0.0, anno)
+    background = 0.1 * np.ones((1,) + anno.shape[1:], anno.dtype)
+    return np.argmax(np.concatenate([background, anno], 0), 0).astype(np.uint8)
+
+
+def save_davis_annotator_masks(index_masks: np.ndarray, out_dir: str,
+                               frame_names: Sequence[str]):
+    from PIL import Image
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for f, name in enumerate(frame_names):
+        img = Image.fromarray(index_masks[f])
+        img.putpalette(DAVIS_PALETTE + bytes(768 - len(DAVIS_PALETTE)))
+        img.save(out / f"{name}.png")

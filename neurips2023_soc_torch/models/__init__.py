@@ -17,7 +17,8 @@ def build_model(config, device: Optional[Union[str, torch.device]] = None,
     """SOC from a loaded config (config.load_config), initialized from a
     seeded torch.Generator and placed on `device` — the CUDA card when None
     (RuntimeError without CUDA). Parameters are float32; compute runs in
-    `compute_dtype`."""
+    `compute_dtype`; `swin_attn_impl: pallas` runs the backbone's window
+    attention through kernel K3 (inference only: K3 has no backward)."""
     dev = resolve_device(device)
     dt = config.DeformTransformer
     voc = config.VOC
@@ -50,6 +51,7 @@ def build_model(config, device: Optional[Union[str, torch.device]] = None,
         freeze_text_encoder=config.get("freeze_text_encoder", True),
         vl_loss=config.vl_loss,
         use_remat=config.get("use_checkpoint", False),
+        swin_attn_impl=config.get("swin_attn_impl", "xla"),
         dtype=dtype,
     )
     init_weights(model, torch.Generator().manual_seed(seed))

@@ -63,7 +63,7 @@ class SOC(nn.Module):
                  voc_dec_layers: int = 3, text_encoder_type: str = "roberta-base",
                  vl_loss: bool = True, use_remat: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.1,
-                 freeze_text_encoder: bool = True):
+                 freeze_text_encoder: bool = True, swin_attn_impl: str = "xla"):
         super().__init__()
         if backbone_name not in SWIN_CONFIGS:
             raise ValueError(f"unknown backbone {backbone_name} "
@@ -81,7 +81,8 @@ class SOC(nn.Module):
         self.controller_layers = controller_layers
         self.dynamic_mask_channels = dynamic_mask_channels
         self.backbone = nn.ModuleList(
-            [_BackboneBody(build_video_swin(backbone_name, use_remat, dtype))])
+            [_BackboneBody(build_video_swin(backbone_name, use_remat, dtype,
+                                            swin_attn_impl))])
         embed = SWIN_CONFIGS[backbone_name]["embed_dim"]
         backbone_channels = [embed * 2 ** i for i in range(4)]
 

@@ -6,7 +6,11 @@ PatchMerging applied after each stage's output is collected, so all four
 stride-4/8/16/32 maps are emitted per frame. The relative-position bias is a
 plain index gather into the table; the shift mask (additive -100 between
 regions) is derived on the device from small region-id tables that are made
-once per geometry. Window attention is `ops.window_attention_torch`.
+once per geometry. Window attention is `ops.window_attention_torch` with
+`attn_impl="xla"` (the default), and `ops.window_attention` (kernel K3 on the
+card, its plain version on the CPU) with `attn_impl="pallas"`, the JAX config
+value: a shifted block then passes the compact (nW, N) region ids and never
+builds the (nW, N, N) mask (JAX video_swin.py:211-221).
 
 Layout: channels-last. Input (B, T, H, W, 3); outputs four per-frame maps
 [(B*T, H/4, W/4, C), ..., (B*T, H/32, W/32, 8C)].
@@ -28,10 +32,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..ops.window_attention import mask_from_ids, window_attention_torch
+from ..ops.window_attention import mask_from_ids, window_attention, window_attention_torch
 from .common import LayerNorm, Linear
 
 Window = Tuple[int, int, int]
+ATTN_IMPLS = ("xla", "pallas")
 
 
 @functools.lru_cache(maxsize=64)
@@ -102,9 +107,12 @@ def _effective_window(size: Tuple[int, int, int], window: Window, shift: Window)
 
 class WindowAttention3D(nn.Module):
     def __init__(self, dim: int, window: Window, num_heads: int, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (expected one of {ATTN_IMPLS})")
         self.window, self.num_heads, self.dtype = tuple(window), num_heads, dtype
+        self.attn_impl = attn_impl
         table_len = ((2 * window[0] - 1) * (2 * window[1] - 1) * (2 * window[2] - 1))
         self.relative_position_bias_table = nn.Parameter(torch.empty(table_len, num_heads))
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
@@ -114,15 +122,20 @@ class WindowAttention3D(nn.Module):
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02,
                               a=-0.04, b=0.04, generator=generator)
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        """x: (B_, N, C) windows; mask: (nW, N, N) additive or None."""
+    def forward(self, x: torch.Tensor, mask=None, region_ids=None) -> torch.Tensor:
+        """x: (B_, N, C) windows; mask: (nW, N, N) additive or None (xla);
+        region_ids: (nW, N) shift-region labels or None (pallas)."""
         B_, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, H, N, Dh)
         idx = _rel_pos_index(self.window, N, x.device)
         bias = self.relative_position_bias_table[idx].view(N, N, H).permute(2, 0, 1)
-        out = window_attention_torch(q, k, v, bias, mask).to(self.dtype)
+        if self.attn_impl == "pallas":
+            out = window_attention(q, k, v, bias, region_ids)
+        else:
+            out = window_attention_torch(q, k, v, bias, mask)
+        out = out.to(self.dtype)
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
 
@@ -151,12 +164,13 @@ class _Mlp(nn.Module):
 class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: Window, shift: Window,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.window, self.shift = tuple(window), tuple(shift)
         self.drop_path = float(drop_path)
         self.norm1 = LayerNorm(dim, dtype=dtype)
-        self.attn = WindowAttention3D(dim, window, num_heads, qkv_bias, dtype)
+        self.attn = WindowAttention3D(dim, window, num_heads, qkv_bias, dtype, attn_impl)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), dtype)
 
@@ -172,16 +186,19 @@ class SwinBlock3D(nn.Module):
         x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h, 0, pad_d))
         Dp, Hp, Wp = D + pad_d, H + pad_h, W + pad_w
         shifted = any(s > 0 for s in shift)
-        mask = None
+        mask = ids = None
         if shifted:
             x = torch.roll(x, (-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
-            mask = _attn_mask(Dp, Hp, Wp, window, shift, x.device, x.dtype)
+            if self.attn.attn_impl == "pallas":
+                ids = _region_ids(Dp, Hp, Wp, window, shift, x.device)
+            else:
+                mask = _attn_mask(Dp, Hp, Wp, window, shift, x.device, x.dtype)
 
         wd, wh, ww = window
         nwd, nwh, nww = Dp // wd, Hp // wh, Wp // ww
         xw = x.view(B, nwd, wd, nwh, wh, nww, ww, C)
         xw = xw.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, wd * wh * ww, C)
-        xw = self.attn(xw, mask)
+        xw = self.attn(xw, mask, ids)
         x = xw.view(B, nwd, nwh, nww, wd, wh, ww, C)
         x = x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, Dp, Hp, Wp, C)
         if shifted:
@@ -244,7 +261,8 @@ class VideoSwinBackbone(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: Window = (8, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_norm: bool = True,
                  out_norms: bool = False, use_remat: bool = False,
-                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.2):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.2,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.patch_size, self.use_remat = tuple(patch_size), use_remat
         self.patch_embed = _PatchEmbed3D(patch_size, embed_dim, patch_norm, dtype)
@@ -256,7 +274,7 @@ class VideoSwinBackbone(nn.Module):
             stages.append(_Stage(
                 SwinBlock3D(dim, num_heads[s], window,
                             (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
-                            dtype, float(dpr[first + i]))
+                            dtype, float(dpr[first + i]), attn_impl)
                 for i in range(depth)))
             if s < len(depths) - 1:
                 downs.append(PatchMerging(dim, dtype))
@@ -311,7 +329,8 @@ SWIN_CONFIGS = {
 
 
 def build_video_swin(name: str, use_remat: bool = False,
-                     dtype: torch.dtype = torch.float32) -> VideoSwinBackbone:
+                     dtype: torch.dtype = torch.float32,
+                     attn_impl: str = "xla") -> VideoSwinBackbone:
     """The rate is the config's own drop_path_rate, else 0.2, as the JAX
     package's build_video_swin resolves it."""
     cfg = dict(SWIN_CONFIGS[name])
@@ -319,4 +338,4 @@ def build_video_swin(name: str, use_remat: bool = False,
         patch_size=(1, 4, 4), window=cfg.pop("window", (8, 7, 7)),
         drop_path_rate=cfg.pop("drop_path_rate", 0.2),
         out_norms=cfg.pop("out_norms", False), patch_norm=True,
-        use_remat=use_remat, dtype=dtype, **cfg)
+        use_remat=use_remat, dtype=dtype, attn_impl=attn_impl, **cfg)

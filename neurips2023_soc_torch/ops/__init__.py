@@ -5,8 +5,12 @@ from .resize import (
     resize_bilinear,
     resize_nearest,
 )
+from .window_attention import window_attention, window_attention_ref, window_attention_torch
 
 __all__ = [
+    "window_attention",
+    "window_attention_ref",
+    "window_attention_torch",
     "ms_deform_attn",
     "ms_deform_attn_torch",
     "level_start_index",

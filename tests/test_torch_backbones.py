@@ -1,7 +1,9 @@
 """Parity of the port's large modules against the JAX package, on the CPU in
 float32 at small sizes (atol = rtol = 1e-4): Video-Swin (shifted and clamped
-windows, the 2D Swin variant), RoBERTa-tiny and VOC at batch 2. The flax
-parameters are carried over through the port's own key mapping."""
+windows, the 2D Swin variant; the port's `attn_impl="pallas"` backbone, K3's
+plain version on the CPU, against the same JAX model built with the default
+`xla`), RoBERTa-tiny and VOC at batch 2. The flax parameters are carried over
+through the port's own key mapping."""
 import numpy as np
 import pytest
 import torch
@@ -14,18 +16,19 @@ import neurips2023_soc_torch.models.video_swin as tvs
 import neurips2023_soc_torch.models.voc as tvoc
 
 from torch_port_helpers import apply_jax, close, init_jax, load, soc_state_dict, t
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def _check_swin(name, video):
     jm = jvs.build_video_swin(name)
     params = init_jax(jm, video)
     want = apply_jax(jm, params, video)
-    tm = load(tvs.build_video_swin(name),
-              soc_state_dict(params, "backbone", "backbone.0.body."))
-    got = tm(t(video))
-    assert len(got) == len(want) == 4
-    for g, w in zip(got, want):
-        close(g, w)
+    sd = soc_state_dict(params, "backbone", "backbone.0.body.")
+    for impl in ("xla", "pallas"):
+        got = load(tvs.build_video_swin(name, attn_impl=impl), sd)(t(video))
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            close(g, w)
 
 
 def _case_video_swin_t():

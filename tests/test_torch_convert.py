@@ -15,6 +15,7 @@ from neurips2023_soc_torch.config import load_config
 from neurips2023_soc_torch.convert import flax_to_torch, load_jax_params, state_dict_from_jax
 from neurips2023_soc_torch.inference import InferenceEngine
 from neurips2023_soc_torch.models import build_model
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "tiny_synthetic.yaml"
 

@@ -1,10 +1,17 @@
 """The port (neurips2023_soc_torch) and chip_smoke.py import neither JAX, flax
-nor the JAX package: checked in a fresh interpreter and by a scan of the
-sources for import statements."""
+nor the JAX package: checked in a fresh interpreter that imports every module
+of the port (the CLIs, data, evaluators and parallel modules included) and by
+a scan of the sources for import statements. Also the test harness's share of
+the cores for torch under pytest-xdist."""
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
+
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
+from torch_port_helpers import worker_share_of_cores
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "neurips2023_soc_tpu")
@@ -17,7 +24,12 @@ for m in pkgutil.walk_packages(neurips2023_soc_torch.__path__, "neurips2023_soc_
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print("LOADED", bad)
+print("PORT", sorted(m for m in sys.modules if m.startswith("neurips2023_soc_torch.")))
 """
+NEW_IN_SLICE_3 = ("cli.infer_refytb", "cli.demo_video", "cli.predict", "evaluators",
+                  "parallel.multihost", "data.transforms", "data.refer_youtube_vos",
+                  "data.a2d_sentences", "utils.colormap", "utils.visualize",
+                  "ops.window_attention")
 
 
 def test_fresh_import_loads_no_jax():
@@ -26,6 +38,9 @@ def test_fresh_import_loads_no_jax():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    loaded = out.stdout.split("PORT", 1)[1]
+    for name in NEW_IN_SLICE_3:
+        assert f"'neurips2023_soc_torch.{name}'" in loaded, name
 
 
 def test_sources_import_no_jax():
@@ -34,3 +49,20 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_torch_gets_the_workers_share_of_the_cores(monkeypatch):
+    """Under pytest-xdist each port test module runs torch on cpu_count //
+    workers threads: a full pool per worker oversubscribed the CPU and slowed
+    the port's tests 5-10 fold (the trainer test took 145 s under 6 workers,
+    6 s alone)."""
+    share = worker_share_of_cores()
+    if share is not None:
+        assert torch.get_num_threads() == share
+    monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+    monkeypatch.setattr("os.cpu_count", lambda: 8)
+    assert worker_share_of_cores() == 1
+    monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "2")
+    assert worker_share_of_cores() == 4
+    monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+    assert worker_share_of_cores() is None

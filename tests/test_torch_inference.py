@@ -13,6 +13,7 @@ from neurips2023_soc_torch.convert import load_jax_params
 from neurips2023_soc_torch.inference import (InferenceEngine, _extract_outputs,
                                              _normalize_u8_in_graph)
 from neurips2023_soc_torch.models.soc import SOC
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
           enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,

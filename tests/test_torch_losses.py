@@ -15,6 +15,7 @@ from neurips2023_soc_tpu import losses as jl
 from neurips2023_soc_tpu.losses.matcher import lsa_on_device as jax_lsa
 from neurips2023_soc_torch import losses as tl
 from neurips2023_soc_torch.losses.matcher import BIG
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

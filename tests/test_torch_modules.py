@@ -21,6 +21,7 @@ import neurips2023_soc_torch.utils.boxes as tbx
 
 from torch_port_helpers import apply_jax, close, generic_state_dict, init_jax, load, \
     run_jax, soc_state_dict, t
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 RNG = np.random.RandomState
 

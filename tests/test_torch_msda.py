@@ -9,6 +9,7 @@ import torch
 from neurips2023_soc_tpu.ops.ms_deform_attn import ms_deform_attn_xla
 from neurips2023_soc_tpu.ops.pallas_msda import ms_deform_attn_pallas
 from neurips2023_soc_torch.ops import level_start_index, ms_deform_attn, ms_deform_attn_torch
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

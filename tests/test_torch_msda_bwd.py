@@ -14,6 +14,7 @@ from neurips2023_soc_tpu.ops.ms_deform_attn import ms_deform_attn_xla
 from neurips2023_soc_tpu.ops.pallas_msda import ms_deform_attn_pallas_bwd
 from neurips2023_soc_torch.ops.ms_deform_attn import (ms_deform_attn, ms_deform_attn_torch,
                                                       ms_deform_attn_torch_bwd)
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PALLAS_SHAPES = ((9, 17), (5, 9), (3, 5))

@@ -2,7 +2,10 @@
 at the tiny shape of tests/test_inference.py (video-swin-t, d_model 64,
 roberta-tiny), batch 2 with padding: the JAX model is initialized, its
 parameters converted (convert.load_jax_params, strict) and every output
-compared at rtol = atol = 1e-4."""
+compared at rtol = atol = 1e-4. The port's SOC with `swin_attn_impl:
+pallas` (K3's plain version on the CPU) is held against the same JAX model,
+which keeps the default `xla` (its Pallas kernel does not run on the CPU
+outside interpret mode)."""
 import jax
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ import torch
 from neurips2023_soc_tpu.models.soc import SOC as JaxSOC
 from neurips2023_soc_torch.convert import load_jax_params
 from neurips2023_soc_torch.models.soc import SOC
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
           enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,
@@ -42,6 +46,12 @@ def models():
     return jm, params, tm, inputs
 
 
+@pytest.fixture(scope="module")
+def jax_forward(models):
+    jm, params, _, inputs = models
+    return jax.tree_util.tree_map(np.asarray, jax.jit(jm.apply)(params, *inputs))
+
+
 def _compare(got, want, keys=KEYS):
     """rtol = atol = 1e-4. The mask logits reach |30|-|200| from random
     weights, and an entry near zero is the difference of such terms, so their
@@ -52,9 +62,9 @@ def _compare(got, want, keys=KEYS):
         np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4, atol=atol, err_msg=k)
 
 
-def test_soc_forward_parity_b2(models):
-    jm, params, tm, inputs = models
-    want = jax.jit(jm.apply)(params, *inputs)
+def test_soc_forward_parity_b2(models, jax_forward):
+    _, _, tm, inputs = models
+    want = jax_forward
     with torch.no_grad():
         got = tm(*(torch.from_numpy(a) for a in inputs))
     assert got["pred_masks"].shape == (1, 4, 2, 5, 12, 16)
@@ -86,3 +96,18 @@ def test_head_of_backbone_features_equals_forward(models):
         split = tm.head(tm.backbone_features(px, pad), pad, ids, msk)
     for k in KEYS:
         torch.testing.assert_close(split[k], whole[k], rtol=0, atol=0)
+
+
+def test_soc_pallas_window_attention_parity_b2(models, jax_forward):
+    """swin_attn_impl='pallas' changes no parameter: the same state_dict
+    loads strictly, and every Swin block runs the K3 plain version."""
+    from neurips2023_soc_torch.ops.window_attention import window_attention
+
+    _, _, tm, inputs = models
+    pallas = SOC(swin_attn_impl="pallas", **KW)
+    pallas.load_state_dict(tm.state_dict(), strict=True)
+    window_attention.plain_calls = 0
+    with torch.no_grad():
+        got = pallas.eval()(*(torch.from_numpy(a) for a in inputs))
+    assert window_attention.plain_calls == 12  # video-swin-t: 2 + 2 + 6 + 2 blocks
+    _compare(got, jax_forward)

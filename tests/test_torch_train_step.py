@@ -29,6 +29,7 @@ from neurips2023_soc_torch.models.text_encoder import build_tokenizer
 from neurips2023_soc_torch.training.optim import global_norm
 from neurips2023_soc_torch.training.train_step import TARGET_KEYS
 from torch_port_helpers import jax_params_from_torch
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
           enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,

@@ -28,6 +28,7 @@ from neurips2023_soc_torch.training import (Trainer, build_optimizer, load_torch
                                             save_reference_checkpoint,
                                             update_milestones_from_microsteps)
 from torch_port_helpers import apply_jax, init_jax, load, soc_state_dict
+from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
 
 KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
           enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,

@@ -1,14 +1,44 @@
 """Helpers for the parity tests of the PyTorch port against the JAX package:
 initialize a flax module from numpy inputs, carry its parameters into the
 port's twin, and compare outputs as numpy arrays."""
+import os
 import re
 from collections.abc import Mapping
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from neurips2023_soc_torch.convert import INVERSE_TRANSFORMS, flax_to_torch
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_per_worker():
+    """Under pytest-xdist, torch's intra-op pool gets the worker's share of
+    the cores (cpu_count // workers, at least 1) while a module's tests run:
+    every worker's default pool of cpu_count threads oversubscribes the CPU,
+    and the waiting threads slowed the port's torch-heavy tests 5-10 fold.
+    A run without workers keeps the default. Test modules import this
+    fixture, which makes it autouse for them."""
+    share = worker_share_of_cores()
+    if share is None:
+        yield
+        return
+    saved = torch.get_num_threads()
+    torch.set_num_threads(share)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def worker_share_of_cores():
+    """cpu_count // xdist workers (at least 1), or None outside xdist."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers <= 1:
+        return None
+    return max(1, (os.cpu_count() or 1) // workers)
+
 
 # torch layout -> flax layout: the inverses of convert.INVERSE_TRANSFORMS
 TRANSFORMS = {
