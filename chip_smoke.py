@@ -26,7 +26,9 @@ prints no result):
                atol = two bf16 ulps of their scale (2 * 2**-7 * max|output|);
                d_loc, f32 in every case, at the f32 tolerance above.
                K3 (Swin window attention) at the Video-Swin-B shapes of a
-               16 x 360 x 640 clip, a clamped window and a 2D-Swin window:
+               16 x 360 x 640 clip (stage 3 also with q, k, v as the strided
+               views of one fused qkv buffer, as the backbone passes them),
+               a clamped window and a 2D-Swin window:
                f32 rtol = atol = 2e-5; bf16 against the plain version in f32
                on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps
                of the largest expected magnitude.
@@ -78,7 +80,8 @@ from neurips2023_soc_torch.models.text_encoder import build_tokenizer
 from neurips2023_soc_torch.ops import _build
 from neurips2023_soc_torch.ops.ms_deform_attn import (ms_deform_attn, ms_deform_attn_torch,
                                                       ms_deform_attn_torch_bwd)
-from neurips2023_soc_torch.ops.window_attention import (mask_from_ids, window_attention,
+from neurips2023_soc_torch.ops.window_attention import (_kernel_layout, mask_from_ids,
+                                                        window_attention,
                                                         window_attention_ref,
                                                         window_attention_torch)
 from neurips2023_soc_torch.models.video_swin import _np_window_region_ids
@@ -355,13 +358,19 @@ def window_geometry(T: int, H: int, W: int, window, shifted: bool):
     return nW, N, ids
 
 
-def wattn_inputs(B_, H, N, ids, dtype, seed):
+def wattn_inputs(B_, H, N, ids, dtype, seed, fused=False):
+    """Contiguous (B_, H, N, 32) q, k, v; with `fused`, the three strided
+    views of one (B_, N, 3, H, 32) qkv buffer that WindowAttention3D passes."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B_, H, N, 32, generator=g) for _ in range(3))
-    bias = 0.02 * torch.randn(H, N, N, generator=g)
     dev = torch.device("cuda")
+    if fused:
+        qkv = torch.randn(B_, N, 3, H, 32, generator=g).to(dev, dtype).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+    else:
+        q, k, v = (torch.randn(B_, H, N, 32, generator=g).to(dev, dtype) for _ in range(3))
+    bias = 0.02 * torch.randn(H, N, N, generator=g)
     ids_t = None if ids is None else torch.from_numpy(ids).to(dev)
-    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype), bias.to(dev), ids_t)
+    return q, k, v, bias.to(dev), ids_t
 
 
 def wattn_bound_ms(q, bias, ids):
@@ -390,19 +399,23 @@ def check_window_attention() -> dict:
     s4 = window_geometry(16, 12, 20, win, False)
     clamp = window_geometry(4, 23, 40, win, True)  # T = 4 < 8: window (4, 7, 7)
     swin2d = window_geometry(1, 23, 40, (1, 7, 7), True)
-    cases = [  # name, B_, H, (nW, N, ids), dtype
-        ("stage 1 masked bf16", s1[0], 4, s1, torch.bfloat16),
-        ("stage 3 masked bf16", s3[0], 16, s3, torch.bfloat16),
-        ("stage 3 unmasked bf16", s3[0], 16, (s3[0], s3[1], None), torch.bfloat16),
-        ("stage 3 masked f32", s3[0], 16, s3, torch.float32),
-        ("stage 3 unmasked f32", s3[0], 16, (s3[0], s3[1], None), torch.float32),
-        ("stage 4 unmasked f32", s4[0], 32, s4, torch.float32),
-        ("clamped window N=196 masked bf16, B=2", 2 * clamp[0], 8, clamp, torch.bfloat16),
-        ("2D Swin N=49 masked f32", swin2d[0], 4, swin2d, torch.float32),
+    cases = [  # name, B_, H, (nW, N, ids), dtype, q/k/v as views of a fused qkv buffer
+        ("stage 1 masked bf16", s1[0], 4, s1, torch.bfloat16, False),
+        ("stage 3 masked bf16", s3[0], 16, s3, torch.bfloat16, False),
+        ("stage 3 masked bf16, fused qkv views", s3[0], 16, s3, torch.bfloat16, True),
+        ("stage 3 unmasked bf16", s3[0], 16, (s3[0], s3[1], None), torch.bfloat16, False),
+        ("stage 3 masked f32", s3[0], 16, s3, torch.float32, False),
+        ("stage 3 unmasked f32", s3[0], 16, (s3[0], s3[1], None), torch.float32, False),
+        ("stage 4 unmasked f32", s4[0], 32, s4, torch.float32, False),
+        ("clamped window N=196 masked bf16, B=2", 2 * clamp[0], 8, clamp, torch.bfloat16,
+         False),
+        ("2D Swin N=49 masked f32", swin2d[0], 4, swin2d, torch.float32, False),
     ]
     report = {}
-    for i, (name, B_, H, (nW, N, ids), dtype) in enumerate(cases):
-        q, k, v, bias, ids_t = wattn_inputs(B_, H, N, ids, dtype, seed=20 + i)
+    for i, (name, B_, H, (nW, N, ids), dtype, fused) in enumerate(cases):
+        q, k, v, bias, ids_t = wattn_inputs(B_, H, N, ids, dtype, seed=20 + i, fused=fused)
+        if fused and _kernel_layout(q, k, v)[0] is not q:
+            raise RuntimeError("the fused qkv views were copied before the kernel")
         with torch.no_grad():
             got = window_attention(q, k, v, bias, ids_t)
             torch.cuda.synchronize()
@@ -543,11 +556,13 @@ def k3_path(e2e: dict) -> dict:
     window attention (either version) or the plain MSDA."""
     cfg = inference_config("pallas")
     torch.cuda.reset_peak_memory_stats()
-    pool = EnginePool(build_model(cfg, device="cuda", seed=0),
-                      devices=[torch.device("cuda", 0)],
+    model = build_model(cfg, device="cuda", seed=0)
+    pool = EnginePool(model, devices=[torch.device("cuda", 0)],
                       text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
                       size_buckets=((HEIGHT, WIDTH),))
     engine = pool.engines[0]
+    if engine.model is not model:
+        raise RuntimeError("EnginePool copied a model already on its card")
     videos, texts = inference_inputs()
     t0 = time.perf_counter()
     engine.infer_video(videos[0], texts[0])  # warm-up

@@ -35,7 +35,6 @@ def main(argv=None):
     parser.add_argument("--text", default="the red square moving right")
     parser.add_argument("--checkpoint_path", "-ckpt", default=None)
     parser.add_argument("--backbone", "-b", default=None)
-    parser.add_argument("--backbone_pretrained_path", "-bpp", default=None)
     parser.add_argument("--output_dir", default="outputs/demo")
     parser.add_argument("--frame_stride", type=int, default=5)
     parser.add_argument("--synthetic", action="store_true")
@@ -44,8 +43,7 @@ def main(argv=None):
                         metavar=("H", "W"))
     args = add_device_arg(parser).parse_args(argv)
     config = load_config(args.config_path, overrides={
-        "checkpoint_path": args.checkpoint_path, "backbone": args.backbone,
-        "backbone_pretrained_path": args.backbone_pretrained_path})
+        "checkpoint_path": args.checkpoint_path, "backbone": args.backbone})
     device = resolve_device(args.device)
 
     if args.synthetic:

@@ -18,10 +18,11 @@ def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool 
     """Whole-video inference over the valid split, written as the competition
     submission (reference trainer.py:315-354).
 
-    Expressions of one video share the decoded frames and the text-independent
-    backbone: samples are grouped by video (dataset.video_groups(), or the
-    `groups` index lists a multi-process caller sharded), each group is
-    decoded once and runs InferenceEngine.infer_video_multi.
+    `dataset` is a ReferYouTubeVOSDataset (test split). Expressions of one
+    video share the decoded frames and the text-independent backbone: samples
+    are grouped by video (dataset.video_groups(), or the `groups` index lists
+    a multi-process caller sharded), each group is decoded once and runs
+    InferenceEngine.infer_video_multi.
 
     With visualize_dir and frame_path_fn(video_id, frame_name) -> jpg path,
     box + mask overlays on the original frames are written too, one palette
@@ -33,11 +34,7 @@ def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool 
     from .parallel.multihost import barrier, is_main_process
 
     if groups is None:
-        if hasattr(dataset, "video_groups"):
-            groups = list(dataset.video_groups().values())
-        else:
-            groups = [[i] for i in range(len(dataset))]
-    can_batch = hasattr(dataset, "get_text") and hasattr(dataset, "exp_id")
+        groups = list(dataset.video_groups().values())
 
     def item_fn(w):
         """Decode one video group into infer_video_multi kwargs; it runs
@@ -46,17 +43,8 @@ def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool 
         g = w["g"]
         s = dataset[g[0]]
         meta0 = s["video_metadata"]
-        if can_batch:
-            texts = [dataset.get_text(i) for i in g]
-            w["metas"] = [{**meta0, "exp_id": dataset.exp_id(i)} for i in g]
-        else:
-            if len(g) > 1:
-                raise ValueError(
-                    "multi-expression groups need dataset.get_text/exp_id accessors "
-                    f"(got a {len(g)}-element group on {type(dataset).__name__})")
-            texts = [s["text"]]
-            w["metas"] = [meta0]
-        return dict(frames=s["frames"], texts=texts,
+        w["metas"] = [{**meta0, "exp_id": dataset.exp_id(i)} for i in g]
+        return dict(frames=s["frames"], texts=[dataset.get_text(i) for i in g],
                     original_size=meta0["original_frame_size"],
                     return_boxes=visualize_dir is not None)
 

@@ -455,12 +455,15 @@ def _cxcywh_to_xyxy_pixels(boxes: np.ndarray, oh: int, ow: int) -> np.ndarray:
 
 
 class EnginePool:
-    """One InferenceEngine per CUDA device, each with its own deep-copied
-    replica of the model on its device; videos are fanned out over one host
-    thread per engine. `devices=None` means every visible card. The JAX
-    package's `_local_replica` (pulling the local shard out of parameters
-    replicated over several hosts) has no counterpart: a torch model lives in
-    one process, and its replicas are copies."""
+    """One InferenceEngine per CUDA device, each with its own replica of the
+    model on its device; videos are fanned out over one host thread per
+    engine. `devices=None` means every visible card. The first engine on the
+    device the model already lives on runs `model` itself (as one
+    InferenceEngine does), so that card holds one copy of the weights; every
+    other engine runs a deep copy. The JAX package's `_local_replica`
+    (pulling the local shard out of parameters replicated over several hosts)
+    has no counterpart: a torch model lives in one process, and its replicas
+    are copies."""
 
     def __init__(self, model: torch.nn.Module, devices=None, **engine_kwargs):
         if devices is None:
@@ -470,8 +473,11 @@ class EnginePool:
         if not self.devices:
             raise ValueError("EnginePool needs at least one device")
         self._params_src = None
-        self.engines = [InferenceEngine(copy.deepcopy(model), device=d, **engine_kwargs)
-                        for d in self.devices]
+        home = next(model.parameters()).device
+        own = next((i for i, d in enumerate(self.devices) if _same_device(d, home)), None)
+        self.engines = [InferenceEngine(model if i == own else copy.deepcopy(model),
+                                        device=d, **engine_kwargs)
+                        for i, d in enumerate(self.devices)]
 
     def update_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load `state_dict` (e.g. the trainer's current weights) into every
@@ -502,6 +508,13 @@ class EnginePool:
 
 def _on_device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """a and b name one device (a bare "cuda" is the current card)."""
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+    return a.type == b.type and index(a) == index(b)
 
 
 def _run_workers(worker, n: int) -> None:

@@ -6,6 +6,7 @@ on fewer than 1 % of the pixels), EnginePool and run_videos_pipelined over CPU d
 the YTVOS/DAVIS save helpers (byte-identical files), the config CLI flags
 and the single-process multihost no-ops."""
 import argparse
+import copy
 import zipfile
 
 import jax.numpy as jnp
@@ -114,16 +115,18 @@ def test_engine_yuv420_input_and_uint8_probabilities(model):
 
 
 def test_engine_pool_and_pipelined_runs(model):
-    """Two CPU "devices": each engine holds its own replica, items go round
-    robin, and the results equal one engine's; update_params reaches every
-    replica and skips the object it loaded last."""
+    """Two CPU "devices": each engine holds its own replica (the first one on
+    the model's own device the given model, so that device holds one copy),
+    items go round robin, and the results equal one engine's; update_params
+    reaches every replica and skips the object it loaded last."""
     videos = [_frames(4 + i, t=3) for i in range(3)]
     texts = ["a thing", "another thing", "the left one"]
     single = tinf.InferenceEngine(model, device="cpu", **ENGINE)
     want = [single.infer_video(v, t) for v, t in zip(videos, texts)]
-    pool = tinf.EnginePool(model, devices=["cpu", "cpu"], **ENGINE)
+    given = copy.deepcopy(model)  # update_params below overwrites the pool's weights
+    pool = tinf.EnginePool(given, devices=["cpu", "cpu"], **ENGINE)
     assert len(pool.engines) == 2
-    assert pool.engines[0].model is not pool.engines[1].model is not model
+    assert pool.engines[0].model is given and pool.engines[1].model is not given
     got = pool.map_videos(list(zip(videos, texts)), lambda e, it: e.infer_video(*it))
     items = [{"v": v, "t": t} for v, t in zip(videos, texts)]
     piped = tinf.run_videos_pipelined(pool, items, lambda it: dict(frames=it["v"],
@@ -184,11 +187,18 @@ def test_save_helpers_write_the_jax_files(tmp_path):
 
 
 def test_config_flags_equal_jax(tmp_path):
-    argv = ["-c", "configs/tiny_synthetic.yaml", "-rm", "infer", "--lr", "3e-4",
-            "-ckpt", "w.pth.tar", "--lr_drop", "3", "5"]
+    """Each flag the port keeps sets the config key the JAX flag of its name
+    sets (JAX alone also stores its running_mode default); the JAX flags no
+    port code reads are refused, not silently accepted."""
+    argv = ["-c", "configs/tiny_synthetic.yaml", "-b", "video-swin-b", "-ckpt", "w.pth.tar",
+            "--output_dir", "out"]
     got = config_from_args(add_config_args(argparse.ArgumentParser()).parse_args(argv))
     want = jax_config_from_args(jax_add_config_args(argparse.ArgumentParser()).parse_args(argv))
-    assert got.to_dict() == want.to_dict()
+    assert got.to_dict() == {k: v for k, v in want.to_dict().items() if k != "running_mode"}
+    assert got.backbone == "video-swin-b" and got.checkpoint_path == "w.pth.tar"
+    for extra in (["-pw", "w"], ["-bpp", "b"], ["-rm", "infer"], ["--lr", "3e-4"]):
+        with pytest.raises(SystemExit):
+            add_config_args(argparse.ArgumentParser()).parse_args(argv + extra)
 
 
 def test_multihost_is_a_no_op_in_one_process(monkeypatch):

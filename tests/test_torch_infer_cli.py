@@ -114,7 +114,7 @@ def test_infer_refytb_cli_end_to_end(ytvos_valid_root, tmp_path):
     config = load_config(cfg)
     weights = build_model(config, device="cpu", seed=1)
     ckpt = save_reference_checkpoint(weights, tmp_path / "soc.pth.tar")
-    infer_refytb.main(["-c", cfg, "-rm", "infer", "-ckpt", str(ckpt), "--visualize",
+    infer_refytb.main(["-c", cfg, "-ckpt", str(ckpt), "--visualize",
                        "--device", "cpu"])
 
     names = sorted(zipfile.ZipFile(out_dir / "submission.zip").namelist())
@@ -146,6 +146,16 @@ def test_infer_refytb_refuses_an_orbax_directory(ytvos_valid_root, tmp_path):
     cfg = _cfg(ytvos_valid_root, tmp_path, tmp_path / "out")
     with pytest.raises(ValueError, match="orbax"):
         infer_refytb.main(["-c", cfg, "-ckpt", str(tmp_path), "--device", "cpu"])
+
+
+def test_infer_refytb_refuses_flags_it_does_not_read(ytvos_valid_root, tmp_path):
+    """The JAX CLI's pretrained-weight flags load nothing here: passing one
+    stops the CLI before it writes a submission from seeded weights."""
+    cfg = _cfg(ytvos_valid_root, tmp_path, tmp_path / "out")
+    for flag in ("-pw", "-bpp"):
+        with pytest.raises(SystemExit):
+            infer_refytb.main(["-c", cfg, flag, "weights.pth", "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_demo_video_synthetic_writes_pngs(tmp_path):
