@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (neurips2023_soc_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile   # device, build and e2e-k3's backbone profile only
 
 Phases, each of which raises on failure (so the script exits non-zero and
 prints no result):
@@ -25,13 +26,15 @@ prints no result):
                inputs and cotangent: the bf16 outputs (d_value, d_attn) within
                atol = two bf16 ulps of their scale (2 * 2**-7 * max|output|);
                d_loc, f32 in every case, at the f32 tolerance above.
-               K3 (Swin window attention) at the Video-Swin-B shapes of a
-               16 x 360 x 640 clip (stage 3 also with q, k, v as the strided
-               views of one fused qkv buffer, as the backbone passes them),
-               a clamped window and a 2D-Swin window:
+               K3 (Swin window attention) at the four Video-Swin-B stage
+               shapes of a 16 x 360 x 640 clip, masked and unmasked (stage 3
+               also with q, k, v as the strided views of one fused qkv
+               buffer, as the backbone passes them), a clamped window, a
+               2D-Swin window, N = 512, N = 1 and a prime number of windows:
                f32 rtol = atol = 2e-5; bf16 against the plain version in f32
                on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps
-               of the largest expected magnitude.
+               of the largest expected magnitude. K3 and SDPA are timed at
+               the eight stage shapes and summed over one clip's 24 blocks.
   4. e2e     — the inference path: Video-Swin-B SOC (d_model 256, 20 queries,
                FFN 2048, 3+3 deformable layers, VOC 3+3, roberta-base, bf16)
                from a seeded random init, InferenceEngine.infer_videos over 3
@@ -42,7 +45,10 @@ prints no result):
                no plain window attention or MSDA call; the share of mask
                pixels on which it differs from phase e2e is reported; one
                video with pixel_format yuv420 and one with uint8
-               probabilities.
+               probabilities; one torch.profiler pass over the backbone
+               (device time by kernel); then each of one clip's K3 calls held
+               against the plain version in f32 (two bf16 ulps of scale), and
+               that clip's masks with exact f32 attention in place of K3.
   5. train   — the training path at the same width: Trainer over
                SyntheticRVOSDataset clips of 8 x 360 x 640, batch 1, one epoch
                of 4 steps (the first a warm-up), dropout 0.1, drop path 0.2,
@@ -84,6 +90,7 @@ from neurips2023_soc_torch.ops.window_attention import (_kernel_layout, mask_fro
                                                         window_attention,
                                                         window_attention_ref,
                                                         window_attention_torch)
+from neurips2023_soc_torch.models import video_swin
 from neurips2023_soc_torch.models.video_swin import _np_window_region_ids
 from neurips2023_soc_torch.training import Trainer
 from neurips2023_soc_torch.training.train_step import TARGET_KEYS, device_batch
@@ -114,8 +121,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings after `warmup` calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
+    """Median of `iters` CUDA-event timings, each of `reps` back-to-back
+    calls and divided by `reps`, after `warmup` calls. With reps > 1 the
+    host's launch overhead hides behind the device's work, so a call shorter
+    than that overhead still reads its device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -124,10 +134,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -243,7 +254,7 @@ def check_msda() -> dict:
         f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     log(f"[kernels] ms_deform_attn decoder bf16 Lq=20: kernel {dec_ms:.4f} ms, "
         f"bound {dec_bound:.4f} ms")
-    return dict(name="ms_deform_attn_fwd", route="cuda",
+    return dict(name="ms_deform_attn_fwd", route="cuda", note="f32 CUDA cores",
                 source="neurips2023_soc_torch/csrc/ms_deform_attn_fwd.cu",
                 replaces="neurips2023_soc_tpu/ops/pallas_msda.py:376",
                 max_abs_err=report["encoder bf16"]["err"], bound_ms=bound,
@@ -335,7 +346,7 @@ def check_msda_bwd() -> dict:
         f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     log(f"[kernels] ms_deform_attn_bwd decoder bf16 Lq=20: kernel {dec_ms:.4f} ms, "
         f"bound {msda_bwd_bound_ms(dvalue, LEVELS, dloc, dattn)[0]:.4f} ms")
-    return dict(name="ms_deform_attn_bwd", route="cuda",
+    return dict(name="ms_deform_attn_bwd", route="cuda", note="f32 CUDA cores",
                 source="neurips2023_soc_torch/csrc/ms_deform_attn_bwd.cu",
                 replaces="neurips2023_soc_tpu/ops/pallas_msda.py:698",
                 max_abs_err=report["encoder bf16"]["err"], bound_ms=bound,
@@ -388,28 +399,44 @@ def wattn_bound_ms(q, bias, ids):
 
 def check_window_attention() -> dict:
     """K3 against window_attention_ref on the card at the Video-Swin-B
-    shapes of a 16 x 360 x 640 clip (token grids 16 x 90 x 160, 16 x 23 x 40
-    and 16 x 12 x 20), a clamped window and a 2D-Swin window. f32: rtol = atol
-    = 2e-5 (the JAX suite's). bf16: against the plain version in f32 on the
-    same bf16-rounded inputs, rtol 0 and atol two bf16 ulps of the largest
-    expected magnitude (2 * 2**-7 * max|expected|)."""
+    shapes of a 16 x 360 x 640 clip (token grids 16 x 90 x 160, 16 x 45 x 80,
+    16 x 23 x 40 and 16 x 12 x 20, masked and unmasked), a clamped window, a
+    2D-Swin window, the largest and smallest N the kernel takes, and B_ = 61
+    windows (a prime, so no group of 2 to 60 windows per CTA divides it).
+    f32: rtol = atol = 2e-5 (the JAX suite's). bf16: against the plain version
+    in f32 on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps of
+    the largest expected magnitude (2 * 2**-7 * max|expected|). Times K3,
+    SDPA and the bound at the eight stage shapes (20 back-to-back calls per
+    timing, so the wrapper's host work does not count), and their sums over
+    one clip's 24 blocks."""
     win = (8, 7, 7)
-    s1 = window_geometry(16, 90, 160, win, True)
+    stages = {  # stage: (token grid, heads, blocks per clip, half of them shifted)
+        1: ((16, 90, 160), 4, 2), 2: ((16, 45, 80), 8, 2), 3: ((16, 23, 40), 16, 18),
+        4: ((16, 12, 20), 32, 2)}
+    cases = []  # name, B_, H, (nW, N, ids), dtype, q/k/v as views of a fused qkv buffer
+    for s, (grid, H, _) in stages.items():
+        nW, N, ids = window_geometry(*grid, win, True)
+        cases += [(f"stage {s} masked bf16", nW, H, (nW, N, ids), torch.bfloat16, False),
+                  (f"stage {s} unmasked bf16", nW, H, (nW, N, None), torch.bfloat16, False)]
     s3 = window_geometry(16, 23, 40, win, True)
     s4 = window_geometry(16, 12, 20, win, False)
     clamp = window_geometry(4, 23, 40, win, True)  # T = 4 < 8: window (4, 7, 7)
     swin2d = window_geometry(1, 23, 40, (1, 7, 7), True)
-    cases = [  # name, B_, H, (nW, N, ids), dtype, q/k/v as views of a fused qkv buffer
-        ("stage 1 masked bf16", s1[0], 4, s1, torch.bfloat16, False),
-        ("stage 3 masked bf16", s3[0], 16, s3, torch.bfloat16, False),
+    n512 = window_geometry(16, 16, 16, (8, 8, 8), True)
+    ragged_ids = np.random.RandomState(0).randint(0, 9, (61, s3[1])).astype(np.int32)
+    cases += [
         ("stage 3 masked bf16, fused qkv views", s3[0], 16, s3, torch.bfloat16, True),
-        ("stage 3 unmasked bf16", s3[0], 16, (s3[0], s3[1], None), torch.bfloat16, False),
         ("stage 3 masked f32", s3[0], 16, s3, torch.float32, False),
         ("stage 3 unmasked f32", s3[0], 16, (s3[0], s3[1], None), torch.float32, False),
         ("stage 4 unmasked f32", s4[0], 32, s4, torch.float32, False),
         ("clamped window N=196 masked bf16, B=2", 2 * clamp[0], 8, clamp, torch.bfloat16,
          False),
         ("2D Swin N=49 masked f32", swin2d[0], 4, swin2d, torch.float32, False),
+        ("window (8, 8, 8) N=512 masked bf16", n512[0], 4, n512, torch.bfloat16, False),
+        ("N=1 masked bf16", 24, 2, (24, 1, np.zeros((24, 1), np.int32)), torch.bfloat16,
+         False),
+        ("B_=61 windows N=392 masked bf16", 61, 4, (61, s3[1], ragged_ids), torch.bfloat16,
+         False),
     ]
     report = {}
     for i, (name, B_, H, (nW, N, ids), dtype, fused) in enumerate(cases):
@@ -432,28 +459,40 @@ def check_window_attention() -> dict:
         report[name] = {"err": err, "inputs": (q, k, v, bias, ids_t)}
         del got, want
     timed = {}
-    for name in ("stage 3 masked bf16", "stage 1 masked bf16"):
-        q, k, v, bias, ids_t = report[name]["inputs"]
-        B_, H, N, _ = q.shape
-        nW = ids_t.shape[0]
-        full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
-        full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
-        with torch.no_grad():
-            t = {
-                "ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t)),
-                "plain_ms": time_ms(lambda: window_attention_ref(q, k, v, bias, ids_t),
-                                    iters=10),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=full)),
-            }
-        del full
-        t["bound_ms"], t["bound_by"] = wattn_bound_ms(q, bias, ids_t)
-        log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, SDPA (float mask) {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, bf16 tensor-core peak for "
-            f"operations)")
-        timed[name] = t
+    clip = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for s, (_, _, blocks) in stages.items():
+        for mask in ("masked", "unmasked"):
+            name = f"stage {s} {mask} bf16"
+            q, k, v, bias, ids_t = report[name]["inputs"]
+            B_, H, N, _ = q.shape
+            full = bias[None].to(q.dtype).expand(B_, H, N, N)
+            if ids_t is not None:
+                nW = ids_t.shape[0]
+                full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
+                full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
+            full = full.contiguous()
+            with torch.no_grad():
+                t = {"ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t),
+                                   iters=10, reps=20),
+                     "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=full), iters=10, reps=20)}
+                if s in (1, 3) and mask == "masked":
+                    t["plain_ms"] = time_ms(lambda: window_attention_ref(q, k, v, bias, ids_t),
+                                            iters=10)
+            del full
+            t["bound_ms"], t["bound_by"] = wattn_bound_ms(q, bias, ids_t)
+            for key in clip:
+                clip[key] += blocks // 2 * t[key]
+            log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: kernel {t['ms']:.4f} ms, "
+                + (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t else "")
+                + f"SDPA (float mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}, bf16 tensor-core peak for operations)")
+            timed[name] = t
+    log(f"[kernels] window_attention per 16 x {HEIGHT} x {WIDTH} clip (sum of launches x time "
+        f"over its {K3_PER_CLIP} blocks, half of them masked): kernel {clip['ms']:.4f} ms, "
+        f"SDPA {clip['library_ms']:.4f} ms, bound {clip['bound_ms']:.4f} ms")
     return dict(name="window_attention_fwd", route="cuda",
+                note="bf16: tensor cores (mma.sync m16n8k16); f32: CUDA cores",
                 source="neurips2023_soc_torch/csrc/window_attention_fwd.cu",
                 replaces="neurips2023_soc_tpu/ops/window_attention.py:112",
                 max_abs_err=report["stage 3 masked bf16"]["err"], **timed["stage 3 masked bf16"])
@@ -594,10 +633,13 @@ def k3_path(e2e: dict) -> dict:
     got = expect(NUM_VIDEOS, "run_videos_pipelined")
     check_masks(results)
     engine_fps = NUM_VIDEOS * T_CLIP / wall
-    differ = float(np.mean([np.mean(m != e) for (m,), e in zip(results, e2e["masks"])]))
+    per_video = [float(np.mean(m != e)) for (m,), e in zip(results, e2e["masks"])]
+    differ = float(np.mean(per_video))
     log(f"[e2e-k3] run_videos_pipelined: {NUM_VIDEOS} videos x {T_CLIP} frames in "
         f"{wall:.3f} s = {engine_fps:.2f} frames/s; counts {got}; mask pixels that differ "
-        f"from phase e2e (xla window attention, same weights): {differ:.6f}")
+        f"from phase e2e (xla window attention, same weights): {differ:.6f} (0.003710 when "
+        f"K3 kept p in f32 on the CUDA cores), per video "
+        f"{', '.join(f'{d:.6f}' for d in per_video)}")
 
     # one video with YUV420 input, one with uint8 probabilities
     yuv = InferenceEngine(engine.model, text_encoder_type=cfg.text_encoder_type,
@@ -623,8 +665,70 @@ def k3_path(e2e: dict) -> dict:
         f"multiples of 1/255; 24 K3 + 6 K1 launches each")
 
     timings = clip_timings(engine.model, videos[0], texts[0], engine.tokenizer, "e2e-k3")
+    profile_backbone(engine.model, videos[0], "e2e-k3")
+
+    # after the timed clip, whose peak memory it would raise: the model's own K3 calls of
+    # one clip, each held against the plain version in f32; then that clip with exact f32
+    # attention (p never rounded) in place of K3
+    ratios = []
+
+    def checked(q, k, v, bias, ids):
+        out = window_attention(q, k, v, bias, ids)
+        want = window_attention_ref(q.float(), k.float(), v.float(), bias, ids)
+        ratios.append((out.float() - want).abs().max().item()
+                      / (2 * 2.0 ** -7 * want.abs().max().item()))
+        return out
+
+    def exact(q, k, v, bias, ids):
+        return window_attention_ref(q.float(), k.float(), v.float(), bias, ids).to(q.dtype)
+
+    try:
+        video_swin.window_attention = checked
+        k3_masks = engine.infer_video(videos[0], texts[0])
+        video_swin.window_attention = exact
+        exact_masks = engine.infer_video(videos[0], texts[0])
+    finally:
+        video_swin.window_attention = window_attention
+    if len(ratios) != K3_PER_CLIP or max(ratios) > 1.0:
+        raise RuntimeError(f"K3 on the model's inputs: {len(ratios)} calls, error / tolerance "
+                           f"up to {max(ratios):.3f}")
+    log(f"[e2e-k3] K3 on the model's {len(ratios)} inputs of video 0: error up to "
+        f"{max(ratios):.3f} of the two-ulp tolerance against the plain version in f32; exact "
+        f"f32 attention gives masks that differ from K3's on {np.mean(exact_masks != k3_masks):.6f}"
+        f" and from phase e2e's on {np.mean(exact_masks != e2e['masks'][0]):.6f} of the pixels")
     return dict(launches=got["k3"], k1_launches=got["k1"], engine_fps=engine_fps,
                 differ=differ, **timings)
+
+
+def profile_backbone(model, video, tag: str, top: int = 12) -> None:
+    """One torch.profiler pass over the backbone of one clip (after a warm
+    call): device time by kernel, the top `top` kernels with their share,
+    and the device-busy share of the CUDA-event span around the pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(T_CLIP, 1, HEIGHT, WIDTH, dtype=torch.bool, device="cuda")
+    px = torch.from_numpy(video).cuda()[:, None].float() / 255.0
+    with torch.no_grad():
+        model.backbone_features(px, pad)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            model.backbone_features(px, pad)
+            ev[1].record()
+            torch.cuda.synchronize()
+    span = ev[0].elapsed_time(ev[1])
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise RuntimeError(f"[{tag}] the profiler recorded no device kernel")
+    log(f"[{tag}] profile of one backbone pass: {span:.2f} ms (CUDA events), device busy "
+        f"{busy:.2f} ms in {len(by_name)} kernels ({busy / span:.1%} of the span); top kernels:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[{tag}]   {ms:8.3f} ms {ms / busy:6.1%}  {name[:110]}")
 
 
 def train_path(smi: str, out_dir: str) -> dict:
@@ -767,6 +871,10 @@ def small_reference(attn_impl: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--profile"]):
+        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
+    profile_only = sys.argv[1:] == ["--profile"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -782,6 +890,10 @@ def main() -> int:
     built = _build.build_all()
     log(f"[build] {', '.join(p.name for p in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if profile_only:
+        model = build_model(inference_config("pallas"), device="cuda", seed=0)
+        profile_backbone(model, inference_inputs()[0][0], "profile")
+        return 0
 
     k1 = check_msda()
     k2 = check_msda_bwd()
@@ -806,7 +918,7 @@ def main() -> int:
     small_reference("pallas")
 
     log(smi)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3)]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,14 @@ they differ by the places they round.
 
 `window_attention` is what `swin_attn_impl: pallas` runs: K3 for CUDA
 tensors, `window_attention_ref` for CPU tensors, never one in place of the
-other. The kernel keeps p in float32 (it does not round p to bf16 before the
-product), so on the card it is held against `window_attention_ref` run in
-float32 on the same inputs. It has no backward (the JAX file defines none):
-on a CUDA tensor that requires a gradient it raises, and training keeps
-`swin_attn_impl: xla`.
+other. K3 has two routes, picked by q's dtype. bfloat16 runs on the tensor
+cores (`mma.sync`, f32 accumulators, an online softmax in f32): it rounds the
+unnormalised exp2(s - max) to bf16 for the product with v and divides by the
+f32 row sum once at the end, where the TPU kernel rounds the normalised p.
+float32 runs on the CUDA cores and keeps p in float32. So on the card either
+route is held against `window_attention_ref` run in float32 on the same
+inputs. It has no backward (the JAX file defines none): on a CUDA tensor
+that requires a gradient it raises, and training keeps `swin_attn_impl: xla`.
 
 Counters: `window_attention.launches` (kernel launches),
 `window_attention.plain_calls` (calls sent to `window_attention_ref`) and
@@ -140,6 +143,8 @@ def _launch(q, k, v, bias, ids) -> torch.Tensor:
     B_, H, N, Dh = _check(q, k, v, bias, ids)
     q, k, v = _kernel_layout(q, k, v)
     bias = bias.to(torch.float32).contiguous()
+    if bias.data_ptr() % 16:  # the kernel copies bias rows in 16-byte pieces
+        bias = bias.clone()
     ids_arg, nW = None, 1
     if ids is not None:
         ids = ids.to(torch.int32).contiguous()

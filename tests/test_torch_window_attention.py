@@ -11,7 +11,8 @@ import torch
 from neurips2023_soc_torch.models.common import init_weights
 from neurips2023_soc_torch.models.video_swin import build_video_swin
 from neurips2023_soc_torch.ops import _build
-from neurips2023_soc_torch.ops.window_attention import (window_attention, window_attention_ref,
+from neurips2023_soc_torch.ops.window_attention import (mask_from_ids, window_attention,
+                                                        window_attention_ref,
                                                         window_attention_torch)
 from neurips2023_soc_tpu.ops.window_attention import window_attention_pallas
 from torch_port_helpers import torch_threads_per_worker  # noqa: F401 (autouse)
@@ -54,6 +55,66 @@ def test_ref_matches_pallas_interpret_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), rtol=0,
                                atol=2e-2)
+
+
+def _tiled_bf16_mirror(q, k, v, bias, ids):
+    """The bf16 kernel's arithmetic order in plain torch: scores in the log2
+    domain (f32 q.k times Dh^-1/2 log2(e), plus log2(e) times the f32 bias
+    and the -100 mask); keys in steps of 64, then 16 up to N; the first
+    ceil(full / 2) 64-key steps in one half and the rest in the other, each
+    half with its own running max m and sum l per row; p = exp2(s - m)
+    unnormalised, rounded to bf16 for P.V, summed in f32; the halves merged,
+    one division by the row sum, one rounding of the output."""
+    B_, H_, N_, Dh_ = q.shape
+    log2e = 1.4426950408889634
+    s = (q.float() @ k.float().transpose(-2, -1)) * (Dh_ ** -0.5 * log2e)
+    s = s + bias.float()[None] * log2e
+    if ids is not None:
+        nW_ = ids.shape[0]
+        s = (s.view(B_ // nW_, nW_, H_, N_, N_) + log2e * mask_from_ids(ids)[None, :, None]
+             ).view(B_, H_, N_, N_)
+    full = N_ // 64
+    split = (full + 1) // 2
+    halves = [[(j, 64) for j in range(0, 64 * split, 64)],
+              [(j, 64) for j in range(64 * split, 64 * full, 64)]
+              + [(j, 16) for j in range(64 * full, N_, 16)]]
+    parts = []
+    for steps in halves:
+        m = torch.full((B_, H_, N_, 1), -torch.inf)
+        l = torch.zeros(B_, H_, N_, 1)
+        o = torch.zeros(B_, H_, N_, Dh_)
+        for j0, width in steps:
+            blk = s[..., j0:j0 + width]
+            m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+            c = torch.exp2(m - m_new)
+            p = torch.exp2(blk - m_new)
+            l = l * c + p.sum(-1, keepdim=True)
+            o = o * c + p.to(torch.bfloat16).float() @ v[..., j0:j0 + width, :].float()
+            m = m_new
+        parts.append((m, l, o))
+    (m0, l0, o0), (m1, l1, o1) = parts
+    m = torch.maximum(m0, m1)
+    c0, c1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
+    return ((o0 * c0 + o1 * c1) / (l0 * c0 + l1 * c1)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_tiled_bf16_order_matches_pallas_interpret(with_mask):
+    """Rounding the unnormalised p (the card's bf16 kernel) instead of the
+    normalised p (the TPU kernel) keeps the output within the card's
+    tolerance of the Pallas kernel: two bf16 ulps of the largest output
+    (2 * 2**-7 * max|out|). N = 56 ends in a ragged 16-key step."""
+    q, k, v, bias, ids = _inputs(seed=4, with_mask=with_mask)
+    cast = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    want = np.asarray(window_attention_pallas(
+        cast(q), cast(k), cast(v), bias, None if ids is None else jnp.asarray(ids),
+        interpret=True)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _tiled_bf16_mirror(tq, tk, tv, torch.from_numpy(bias),
+                             None if ids is None else torch.from_numpy(ids))
+    assert got.dtype == torch.bfloat16 and got.shape == (B_, H, N, Dh)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 * 2.0 ** -7 * np.abs(want).max())
 
 
 def test_cpu_tensors_take_the_plain_version():
