@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch port (neurips2023_soc_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile   # device, build and e2e-k3's backbone profile only
 
 Phases, each of which raises on failure (so the script exits non-zero and
 prints no result):
@@ -30,11 +29,14 @@ prints no result):
                shapes of a 16 x 360 x 640 clip, masked and unmasked (stage 3
                also with q, k, v as the strided views of one fused qkv
                buffer, as the backbone passes them), a clamped window, a
-               2D-Swin window, N = 512, N = 1 and a prime number of windows:
+               2D-Swin window, N = 512, N = 1 and a prime number of windows,
+               with a bias of a trained table's spread (std 1.5):
                f32 rtol = atol = 2e-5; bf16 against the plain version in f32
                on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps
-               of the largest expected magnitude. K3 and SDPA are timed at
-               the eight stage shapes and summed over one clip's 24 blocks.
+               of the largest expected magnitude; each case with N > 1 must
+               fail its tolerance when the kernel is given a zeroed bias. K3
+               and SDPA are timed at the eight stage shapes and summed over
+               one clip's 24 blocks.
   4. e2e     — the inference path: Video-Swin-B SOC (d_model 256, 20 queries,
                FFN 2048, 3+3 deformable layers, VOC 3+3, roberta-base, bf16)
                from a seeded random init, InferenceEngine.infer_videos over 3
@@ -47,8 +49,7 @@ prints no result):
                video with pixel_format yuv420 and one with uint8
                probabilities; one torch.profiler pass over the backbone
                (device time by kernel); then each of one clip's K3 calls held
-               against the plain version in f32 (two bf16 ulps of scale), and
-               that clip's masks with exact f32 attention in place of K3.
+               against the plain version in f32 (two bf16 ulps of scale).
   5. train   — the training path at the same width: Trainer over
                SyntheticRVOSDataset clips of 8 x 360 x 640, batch 1, one epoch
                of 4 steps (the first a warm-up), dropout 0.1, drop path 0.2,
@@ -371,7 +372,10 @@ def window_geometry(T: int, H: int, W: int, window, shifted: bool):
 
 def wattn_inputs(B_, H, N, ids, dtype, seed, fused=False):
     """Contiguous (B_, H, N, 32) q, k, v; with `fused`, the three strided
-    views of one (B_, N, 3, H, 32) qkv buffer that WindowAttention3D passes."""
+    views of one (B_, N, 3, H, 32) qkv buffer that WindowAttention3D passes.
+    The bias has the spread of a trained relative-position table (std 1.5),
+    not of its 0.02 init, so that a bias read wrongly moves the output far
+    beyond the bf16 tolerance."""
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
     if fused:
@@ -379,7 +383,7 @@ def wattn_inputs(B_, H, N, ids, dtype, seed, fused=False):
         q, k, v = qkv[0], qkv[1], qkv[2]
     else:
         q, k, v = (torch.randn(B_, H, N, 32, generator=g).to(dev, dtype) for _ in range(3))
-    bias = 0.02 * torch.randn(H, N, N, generator=g)
+    bias = 1.5 * torch.randn(H, N, N, generator=g)
     ids_t = None if ids is None else torch.from_numpy(ids).to(dev)
     return q, k, v, bias.to(dev), ids_t
 
@@ -405,10 +409,13 @@ def check_window_attention() -> dict:
     windows (a prime, so no group of 2 to 60 windows per CTA divides it).
     f32: rtol = atol = 2e-5 (the JAX suite's). bf16: against the plain version
     in f32 on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps of
-    the largest expected magnitude (2 * 2**-7 * max|expected|). Times K3,
-    SDPA and the bound at the eight stage shapes (20 back-to-back calls per
-    timing, so the wrapper's host work does not count), and their sums over
-    one clip's 24 blocks."""
+    the largest expected magnitude (2 * 2**-7 * max|expected|). Where N > 1,
+    a control runs each case again with the bias zeroed on the kernel side and
+    raises unless that fails the tolerance. Times K3, SDPA (given the bias
+    broadcast over the windows where there is no mask, the bias plus the
+    per-window mask where there is) and the bound at the eight stage shapes (20
+    back-to-back calls per timing, so the wrapper's host work does not count),
+    and their sums over one clip's 24 blocks."""
     win = (8, 7, 7)
     stages = {  # stage: (token grid, heads, blocks per clip, half of them shifted)
         1: ((16, 90, 160), 4, 2), 2: ((16, 45, 80), 8, 2), 3: ((16, 23, 40), 16, 18),
@@ -454,8 +461,18 @@ def check_window_attention() -> dict:
         err = (got.float() - want).abs().max().item()
         torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol,
                                    msg=lambda m: f"window attention kernel vs plain, {name}: {m}")
+        control = ""
+        if N > 1:  # the control: the same comparison with the bias zeroed on the kernel side
+            with torch.no_grad():
+                unbiased = window_attention(q, k, v, torch.zeros_like(bias), ids_t)
+            miss = ((unbiased.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+            if miss <= 1.0:
+                raise RuntimeError(f"window attention {name}: the tolerance cannot see the "
+                                   f"bias (zeroed, error {miss:.3f} of the tolerance)")
+            control = f"; bias zeroed: {miss:.1f}x the tolerance"
+            del unbiased
         log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: max_abs_err {err:.3e} "
-            f"(rtol {rtol}, atol {atol:.3e})")
+            f"(rtol {rtol}, atol {atol:.3e}){control}")
         report[name] = {"err": err, "inputs": (q, k, v, bias, ids_t)}
         del got, want
     timed = {}
@@ -465,12 +482,14 @@ def check_window_attention() -> dict:
             name = f"stage {s} {mask} bf16"
             q, k, v, bias, ids_t = report[name]["inputs"]
             B_, H, N, _ = q.shape
-            full = bias[None].to(q.dtype).expand(B_, H, N, N)
+            # unmasked: the (1, H, N, N) bias, broadcast over the windows; masked: the bias
+            # plus the region mask, which differs per window, as a (B_, H, N, N) tensor
+            full, what = bias[None].to(q.dtype), "(1, H, N, N) bias"
             if ids_t is not None:
                 nW = ids_t.shape[0]
                 full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
                 full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
-            full = full.contiguous()
+                what = "(B_, H, N, N) bias + mask"
             with torch.no_grad():
                 t = {"ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t),
                                    iters=10, reps=20),
@@ -485,7 +504,7 @@ def check_window_attention() -> dict:
                 clip[key] += blocks // 2 * t[key]
             log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: kernel {t['ms']:.4f} ms, "
                 + (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t else "")
-                + f"SDPA (float mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                + f"SDPA ({what}) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}, bf16 tensor-core peak for operations)")
             timed[name] = t
     log(f"[kernels] window_attention per 16 x {HEIGHT} x {WIDTH} clip (sum of launches x time "
@@ -668,8 +687,9 @@ def k3_path(e2e: dict) -> dict:
     profile_backbone(engine.model, videos[0], "e2e-k3")
 
     # after the timed clip, whose peak memory it would raise: the model's own K3 calls of
-    # one clip, each held against the plain version in f32; then that clip with exact f32
-    # attention (p never rounded) in place of K3
+    # one clip, each held against the plain version in f32 (this checks the backbone's
+    # strides and region ids; its 0.02-std init bias is too small for the tolerance to see,
+    # which the kernel phase's trained-size bias and its control cover)
     ratios = []
 
     def checked(q, k, v, bias, ids):
@@ -679,23 +699,16 @@ def k3_path(e2e: dict) -> dict:
                       / (2 * 2.0 ** -7 * want.abs().max().item()))
         return out
 
-    def exact(q, k, v, bias, ids):
-        return window_attention_ref(q.float(), k.float(), v.float(), bias, ids).to(q.dtype)
-
     try:
         video_swin.window_attention = checked
-        k3_masks = engine.infer_video(videos[0], texts[0])
-        video_swin.window_attention = exact
-        exact_masks = engine.infer_video(videos[0], texts[0])
+        engine.infer_video(videos[0], texts[0])
     finally:
         video_swin.window_attention = window_attention
     if len(ratios) != K3_PER_CLIP or max(ratios) > 1.0:
         raise RuntimeError(f"K3 on the model's inputs: {len(ratios)} calls, error / tolerance "
                            f"up to {max(ratios):.3f}")
     log(f"[e2e-k3] K3 on the model's {len(ratios)} inputs of video 0: error up to "
-        f"{max(ratios):.3f} of the two-ulp tolerance against the plain version in f32; exact "
-        f"f32 attention gives masks that differ from K3's on {np.mean(exact_masks != k3_masks):.6f}"
-        f" and from phase e2e's on {np.mean(exact_masks != e2e['masks'][0]):.6f} of the pixels")
+        f"{max(ratios):.3f} of the two-ulp tolerance against the plain version in f32")
     return dict(launches=got["k3"], k1_launches=got["k1"], engine_fps=engine_fps,
                 differ=differ, **timings)
 
@@ -871,10 +884,6 @@ def small_reference(attn_impl: str) -> None:
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--profile"]):
-        print("usage: python3 chip_smoke.py [--profile]", file=sys.stderr)
-        return 2
-    profile_only = sys.argv[1:] == ["--profile"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -890,10 +899,6 @@ def main() -> int:
     built = _build.build_all()
     log(f"[build] {', '.join(p.name for p in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    if profile_only:
-        model = build_model(inference_config("pallas"), device="cuda", seed=0)
-        profile_backbone(model, inference_inputs()[0][0], "profile")
-        return 0
 
     k1 = check_msda()
     k2 = check_msda_bwd()

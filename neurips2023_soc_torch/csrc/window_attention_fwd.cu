@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define WATTN_DH 32
 #define WATTN_MAX_N 512
 
@@ -608,31 +610,65 @@ static int window_group(int B_, long long pairs, long long slots) {
   return (int)best;
 }
 
+// What a launch needs to know of its card, found on the card's first launch of each kind and
+// kept, so that a later launch only picks the window group: the SM count, the shared memory a
+// block may opt into (the kernels' dynamic limit is raised to it once), and the CTAs an SM
+// holds per (masked, N), which sets the window group. Guarded by a mutex: ctypes releases the
+// GIL, so two host threads may launch at once.
+#define TC_MAX_CARDS 64
+struct TcCard {
+  int sms = 0, optin = 0;
+  bool raised[2] = {false, false};
+  short per_sm[2][WATTN_MAX_N + 1] = {};  // 0: not found yet
+};
+static TcCard tc_cards[TC_MAX_CARDS];
+static std::mutex tc_cards_mu;
+
 static int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                      const float* bias, const int* ids, __nv_bfloat16* out, int B_, int H,
                      int N, int nW, int64_t sb, int64_t sh, int64_t sn, float scale2,
                      cudaStream_t stream) {
-  int dev = 0, sms = 0, optin = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= TC_MAX_CARDS) return (int)cudaErrorInvalidDevice;
+  const bool masked = ids != nullptr;
+  auto kern = masked ? wattn_tc_kernel<true> : wattn_tc_kernel<false>;
   const int npad = (N + 15) & ~15;
-  int nbuf = 2;
-  if (tc_bias_bytes(npad) + TC_XCHG_BYTES + 2 * tc_buf_bytes(npad) > (size_t)optin) nbuf = 1;
-  const size_t smem = tc_bias_bytes(npad) + TC_XCHG_BYTES + nbuf * tc_buf_bytes(npad);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  auto kern = ids != nullptr ? wattn_tc_kernel<true> : wattn_tc_kernel<false>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  int sms = 0, per_sm = 0, nbuf = 2;
+  {
+    std::lock_guard<std::mutex> lock(tc_cards_mu);
+    TcCard& card = tc_cards[dev];
+    if (card.sms == 0) {
+      int s = 0, o = 0;
+      err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return (int)err;
+      card.sms = s;
+      card.optin = o;
+    }
+    if (tc_bias_bytes(npad) + TC_XCHG_BYTES + 2 * tc_buf_bytes(npad) > (size_t)card.optin)
+      nbuf = 1;
+    smem = tc_bias_bytes(npad) + TC_XCHG_BYTES + nbuf * tc_buf_bytes(npad);
+    if (smem > (size_t)card.optin) return (int)cudaErrorInvalidValue;
+    if (!card.raised[masked]) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, card.optin);
+      if (err != cudaSuccess) return (int)err;
+      card.raised[masked] = true;
+    }
+    if (card.per_sm[masked][N] == 0) {
+      int found = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&found, kern, TC_THREADS, smem);
+      if (err != cudaSuccess) return (int)err;
+      card.per_sm[masked][N] = (short)(found > 0 ? found : 1);
+    }
+    sms = card.sms;
+    per_sm = card.per_sm[masked][N];
+  }
   const int tiles = (N + TC_ROWS - 1) / TC_ROWS;
-  const int per = window_group(B_, (long long)tiles * H,
-                               (long long)sms * (per_sm > 0 ? per_sm : 1));
+  const int per = window_group(B_, (long long)tiles * H, (long long)sms * per_sm);
   const int groups = (int)(((long long)B_ + per - 1) / per);
   kern<<<dim3(tiles, groups, H), TC_THREADS, smem, stream>>>(q, k, v, bias, ids, out, B_, H, N,
                                                               nW, sb, sh, sn, per, nbuf, scale2);
