@@ -8,47 +8,107 @@
 //
 // Every corner outside its level gets zero weight (grid_sample, zeros padding,
 // align_corners=False); a size-1 level needs no special case because its
-// out-of-range corners fail the same bounds check. The sum runs in f32 and the
-// output is written once in the value type.
+// out-of-range corners fail the same bounds check. The sum runs in f32, over the
+// samples in (level, point, corner) order, and the output is written once in the
+// value type.
 //
-// What bounds it on the H100: device-memory bytes (value, loc, attn read once,
-// out written once) plus the locality of the corner gathers; the f32 FMAs are
-// far below the card's rate. Design: one thread per output element (b, q, m, d);
-// neighbouring threads take neighbouring d, so each corner read of one head is
-// one coalesced segment (64 bytes in bf16 at D = 32) and the loc/attn reads of
-// a warp are broadcasts. No shared-memory staging, TMA or split over levels yet.
+// What bounds it on the H100: not the device-memory bytes (value, loc, attn read once
+// and out written once take 0.053 ms at the encoder shape) nor the f32 FMAs, but the
+// corner gathers (39.5 M corners of 64 bytes at the encoder shape, served from L1/L2
+// because one frame's value slice stays in L2) and their latency.
 //
-// C interface (bound with ctypes): msda_fwd(...) launches on the given stream
-// and returns cudaGetLastError() as an int.
+// Two routes, chosen by the wrapper from the shape alone (ops/ms_deform_attn.py:
+// fwd_route):
+//   vec    (D a power-of-two multiple of 8 up to 256, staging <= 48 KB): each thread
+//          owns 8 channels of one (b, q, m), so D / 8 threads (a group) serve it and a
+//          corner is one 16-byte load per thread in bf16. For each level, the group's
+//          threads split its P samples, compute each sample's corner tokens and
+//          attn-scaled weights once and stage them in shared memory; then every thread
+//          runs the level's P x 4 corners without a branch (a corner outside its level
+//          has weight 0 and a clamped, valid address), so all of a level's loads can be
+//          in flight. P = 4 is compiled with the loop unrolled; other P loop at run time.
+//          The output slice is one 16-byte store in bf16.
+//   scalar (any other D): one thread per output element (b, q, m, d), the first port of
+//          this kernel.
+//
+// C interface (bound with ctypes): msda_fwd(...) launches on the given stream and
+// returns cudaGetLastError() as an int.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
-#define MSDA_MAX_LEVELS 16
+#define MSDA_VEC_THREADS 256
 
-struct Levels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
+// ------------------------------------------------------------------ vec route
+template <typename T, typename A, int kP>
+__global__ void __launch_bounds__(MSDA_VEC_THREADS, 2)
+msda_fwd_vec_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const A* __restrict__ attn, T* __restrict__ out,
+                    int S, int M, int D, int Lq, int L, int P_rt, Levels lv,
+                    int64_t groups) {
+  // per group and sample: {int4 corner tokens, float4 attn-scaled weights}
+  extern __shared__ int4 stage[];
+  const int P = kP ? kP : P_rt;
+  const int T8 = D >> 3;  // threads per group
+  const int t = threadIdx.x & (T8 - 1);
+  const int grp = threadIdx.x / T8;
+  const int64_t bqm_raw = (int64_t)blockIdx.x * (blockDim.x / T8) + grp;
+  const bool active = bqm_raw < groups;
+  const int64_t bqm = active ? bqm_raw : groups - 1;  // idle groups still meet __syncwarp
+  const int m = (int)(bqm % M);
+  const int b = (int)(bqm / ((int64_t)Lq * M));
+  const int64_t row = (int64_t)M * D;  // elements between two tokens
+  const T* vb = value + (int64_t)b * S * row + (int64_t)m * D + 8 * t;
+  const float* lp = loc + bqm * L * P * 2;
+  const A* ap = attn + bqm * L * P;
+  int4* rec = stage + (size_t)grp * P * 2;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+  for (int l = 0; l < L; ++l) {
+    const int H = lv.h[l], W = lv.w[l], st = lv.start[l];
+    for (int p = t; p < P; p += T8) {  // each sample's geometry, once per group
+      const int k = l * P + p;
+      const float2 xy = *reinterpret_cast<const float2*>(lp + 2 * k);
+      const float a = to_f32(ap[k]);
+      const Sample s = bilinear_sample(xy.x, xy.y, H, W);
+      float w[4];
+      corner_weights(s, w);
+      rec[2 * p] = make_int4(st + s.tok[0], st + s.tok[1], st + s.tok[2], st + s.tok[3]);
+      rec[2 * p + 1] = make_int4(__float_as_int(w[0] * a), __float_as_int(w[1] * a),
+                                 __float_as_int(w[2] * a), __float_as_int(w[3] * a));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < (kP ? kP : P); ++p) {
+      const int4 tk = rec[2 * p];
+      const int4 wi = rec[2 * p + 1];
+      const int tok[4] = {tk.x, tk.y, tk.z, tk.w};
+      const float aw[4] = {__int_as_float(wi.x), __int_as_float(wi.y),
+                           __int_as_float(wi.z), __int_as_float(wi.w)};
+      float v[4][8];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) load8(vb + (int64_t)tok[c] * row, v[c]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += v[c][j] * aw[c];
+      }
+    }
+    __syncwarp();  // the staging is rewritten for the next level
+  }
+  if (active) store8(out + bqm * D + 8 * t, acc);
 }
 
+// ---------------------------------------------------------------- scalar route
 template <typename T, typename A>
-__global__ void msda_fwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const A* __restrict__ attn,
-                                T* __restrict__ out,
-                                int S, int M, int D, int Lq, int L, int P,
-                                Levels lv, int64_t total) {
+__global__ void msda_fwd_scalar_kernel(const T* __restrict__ value,
+                                       const float* __restrict__ loc,
+                                       const A* __restrict__ attn,
+                                       T* __restrict__ out,
+                                       int S, int M, int D, int Lq, int L, int P,
+                                       Levels lv, int64_t total) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int d = (int)(i % D);
@@ -71,78 +131,75 @@ __global__ void msda_fwd_kernel(const T* __restrict__ value,
     const T* vl = vb + (int64_t)lv.start[l] * row;
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float x = lp[2 * k] * W - 0.5f;
-      const float y = lp[2 * k + 1] * H - 0.5f;
+      const Sample s = bilinear_sample(lp[2 * k], lp[2 * k + 1], H, W);
+      if (!s.inside) continue;
       const float a = to_f32(ap[k]);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      // bounds are tested in float so that far-out or non-finite locations
-      // never reach an int conversion
-      const bool x0_in = x0f >= 0.f && x0f <= (float)(W - 1);
-      const bool x1_in = x0f >= -1.f && x0f <= (float)(W - 2);
-      const bool y0_in = y0f >= 0.f && y0f <= (float)(H - 1);
-      const bool y1_in = y0f >= -1.f && y0f <= (float)(H - 2);
-      if (!((x0_in || x1_in) && (y0_in || y1_in))) continue;
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const float wx0 = 1.f - fx, wx1 = fx;
-      const float wy0 = 1.f - fy, wy1 = fy;
-      if (y0_in) {
-        const T* vrow = vl + (int64_t)y0 * W * row;
-        if (x0_in) acc += to_f32(vrow[(int64_t)x0 * row]) * (wy0 * wx0 * a);
-        if (x1_in) acc += to_f32(vrow[(int64_t)(x0 + 1) * row]) * (wy0 * wx1 * a);
-      }
-      if (y1_in) {
-        const T* vrow = vl + (int64_t)(y0 + 1) * W * row;
-        if (x0_in) acc += to_f32(vrow[(int64_t)x0 * row]) * (wy1 * wx0 * a);
-        if (x1_in) acc += to_f32(vrow[(int64_t)(x0 + 1) * row]) * (wy1 * wx1 * a);
-      }
+      float w[4];
+      corner_weights(s, w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (s.inside & (1u << c)) acc += to_f32(vl[(int64_t)s.tok[c] * row]) * (w[c] * a);
     }
   }
   out[i] = from_f32<T>(acc);
 }
 
-template <typename T, typename A>
-static void launch(const void* value, const void* loc, const void* attn, void* out,
-                   int S, int M, int D, int Lq, int L, int P, const Levels& lv,
-                   int64_t total, cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  msda_fwd_kernel<T, A><<<(unsigned int)blocks, threads, 0, stream>>>(
-      (const T*)value, (const float*)loc, (const A*)attn, (T*)out,
-      S, M, D, Lq, L, P, lv, total);
+// ------------------------------------------------------------------- launches
+enum { ROUTE_VEC = 0, ROUTE_SCALAR = 1 };
+
+static bool vec_shape_ok(int D, int P) {
+  const int T8 = D / 8;
+  return D % 8 == 0 && T8 >= 1 && T8 <= 32 && (T8 & (T8 - 1)) == 0
+         && (size_t)(MSDA_VEC_THREADS / T8) * P * 32 <= 48 * 1024;
 }
 
+template <typename T, typename A>
+static int launch(int route, const void* value, const void* loc, const void* attn, void* out,
+                  int B, int S, int M, int D, int Lq, int L, int P, const Levels& lv,
+                  cudaStream_t stream) {
+  if (route == ROUTE_VEC) {
+    if (!vec_shape_ok(D, P)) return (int)cudaErrorInvalidValue;
+    const int64_t groups = (int64_t)B * Lq * M;
+    const int per_block = MSDA_VEC_THREADS / (D / 8);
+    const int64_t blocks = (groups + per_block - 1) / per_block;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = (size_t)per_block * P * 32;
+    if (P == 4)
+      msda_fwd_vec_kernel<T, A, 4><<<(unsigned)blocks, MSDA_VEC_THREADS, smem, stream>>>(
+          (const T*)value, (const float*)loc, (const A*)attn, (T*)out,
+          S, M, D, Lq, L, P, lv, groups);
+    else
+      msda_fwd_vec_kernel<T, A, 0><<<(unsigned)blocks, MSDA_VEC_THREADS, smem, stream>>>(
+          (const T*)value, (const float*)loc, (const A*)attn, (T*)out,
+          S, M, D, Lq, L, P, lv, groups);
+  } else if (route == ROUTE_SCALAR) {
+    const int64_t total = (int64_t)B * Lq * M * D;
+    const int threads = 256;
+    const int64_t blocks = (total + threads - 1) / threads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    msda_fwd_scalar_kernel<T, A><<<(unsigned)blocks, threads, 0, stream>>>(
+        (const T*)value, (const float*)loc, (const A*)attn, (T*)out,
+        S, M, D, Lq, L, P, lv, total);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// value (B, S, M, D) and out (B, Lq, M*D) in the value type, 16-byte aligned for the
+// vec route; loc (B, Lq, M, L, P, 2) f32, 8-byte aligned; attn (B, Lq, M, L, P).
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn, void* out,
                         int B, int S, int M, int D, int Lq, int L, int P,
                         const int* shapes,  // host array of L (H, W) pairs
-                        int value_bf16, int attn_bf16, void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+                        int value_bf16, int attn_bf16, int route, void* stream) {
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)B * Lq * M * D;
-  if (total == 0) return 0;
-  if ((total + 255) / 256 > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (!fill_levels(lv, shapes, L, S) || P < 1) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Lq * M * D == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (value_bf16) {
-    if (attn_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16>(value, loc, attn, out, S, M, D, Lq, L, P, lv, total, s);
-    else
-      launch<__nv_bfloat16, float>(value, loc, attn, out, S, M, D, Lq, L, P, lv, total, s);
-  } else {
-    if (attn_bf16)
-      launch<float, __nv_bfloat16>(value, loc, attn, out, S, M, D, Lq, L, P, lv, total, s);
-    else
-      launch<float, float>(value, loc, attn, out, S, M, D, Lq, L, P, lv, total, s);
-  }
-  return (int)cudaGetLastError();
+  typedef __nv_bfloat16 bf;
+  if (value_bf16)
+    return attn_bf16 ? launch<bf, bf>(route, value, loc, attn, out, B, S, M, D, Lq, L, P, lv, s)
+                     : launch<bf, float>(route, value, loc, attn, out, B, S, M, D, Lq, L, P, lv, s);
+  return attn_bf16 ? launch<float, bf>(route, value, loc, attn, out, B, S, M, D, Lq, L, P, lv, s)
+                   : launch<float, float>(route, value, loc, attn, out, B, S, M, D, Lq, L, P, lv, s);
 }

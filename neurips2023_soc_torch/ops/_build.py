@@ -3,19 +3,20 @@
 Each `csrc/<name>.cu` has a plain C entry point and includes no PyTorch
 header, so nvcc compiles it in seconds. The shared library goes to
 `build/torch_kernels/` at the root of the checkout (git-ignored), named by a
-hash of its source, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built when a module is imported: the first kernel launch,
-or `build_all`, builds.
+hash of its source and of the csrc/ headers it includes, so an edited source or
+header is rebuilt and an unchanged one is reused. Nothing is built when a module
+is imported: the first kernel launch, or `build_all`, builds.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -38,10 +39,29 @@ def _nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """The kernel's source and every file of csrc/ it includes, directly or not."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Named by a hash of the flags and of every source file the kernel includes, so
+    that an edited header rebuilds each kernel that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -23,6 +23,14 @@ gradient is the backward kernel for a CUDA tensor and autograd through
 computes it): (d_value, d_sampling_locations, d_attention_weights), each in
 its input's dtype, with d_value summed in float32 and rounded once.
 
+Kernel routes, chosen from the shape alone (`fwd_route`, `bwd_route`): "vec"
+where D is a power-of-two multiple of 8 up to 256 (D / 8 threads of 8 channels
+per (b, q, m), each sample's geometry computed once; K2 merges a CTA's hits on
+one corner in shared memory before a 16-byte vector reduction of d_value; D up
+to 256 for K1, 128 for K2), else "scalar" (K1: one thread per output element;
+K2: one warp per (b, q, m)). A route the shape does not fit is refused, never
+replaced by another.
+
 Rounding: the JAX XLA path rounds each bf16 `value * weight` product to bf16
 before its float32 sum (neurips2023_soc_tpu/ops/ms_deform_attn.py:202-204);
 the kernel and the plain version here keep the product in float32. So on the
@@ -31,13 +39,15 @@ card the kernel is held against the plain version, not against JAX.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
+MAX_LEVELS = 16  # csrc/msda_common.cuh:MSDA_MAX_LEVELS
 
 
 def level_start_index(spatial_shapes: SpatialShapes) -> Tuple[int, ...]:
@@ -106,6 +116,78 @@ def ms_deform_attn_torch_bwd(
         return torch.autograd.grad(out, inputs, grad_out)
 
 
+# ---------------------------------------------------------------- kernel routes
+# Shapes, not failures, choose a kernel's route: the C side refuses a route the shape
+# does not fit, and the wrapper raises.
+VEC_THREADS = 256  # threads per CTA of K1's vec route
+SMEM_LIMIT = 232_448  # the shared memory a CTA may opt into on the H100 (and H200)
+
+
+def _pow2(n: int) -> bool:
+    return n >= 1 and n & (n - 1) == 0
+
+
+def _vec_shape(D: int, P: int, kernel: str) -> bool:
+    """D / 8 threads of 8 channels each per (b, q, m), D / 8 a power of two (so a group
+    never straddles a warp) up to 32 for K1 and 16 for K2, and the shared memory the
+    kernel stages within its limit: K1 32 bytes per sample of its 256 threads' groups
+    under 48 KB; K2 (csrc/ms_deform_attn_bwd.cu:vec_plan) 64 groups' samples (32 bytes
+    each), a hash table of twice the level's 64 * P * 4 hits (8 bytes a slot), 12 bytes
+    per hit and the 64 cotangent slices, within SMEM_LIMIT."""
+    t8 = D // 8
+    if D % 8 or not _pow2(t8) or P < 1:
+        return False
+    if kernel == "fwd":
+        return t8 <= 32 and VEC_THREADS // t8 * P * 32 <= 48 * 1024
+    hits = 64 * P * 4
+    slots = 1 << max(4, (2 * hits - 1).bit_length())
+    return t8 <= 16 and 64 * P * 32 + 8 * slots + 12 * hits + 64 * D * 4 <= SMEM_LIMIT
+
+
+def fwd_route(D: int, P: int) -> str:
+    """K1's route for a head width D and P points: "vec" (8-channel slices, each
+    sample's geometry computed once per (b, q, m)) or "scalar" (one thread per
+    output element)."""
+    return "vec" if _vec_shape(D, P, "fwd") else "scalar"
+
+
+def bwd_route(D: int, P: int) -> str:
+    """K2's route for a head width D and P points: "vec" (8-channel slices, a CTA's
+    hits on one corner merged in shared memory before a 16-byte vector reduction of
+    d_value) or "scalar" (one warp per (b, q, m))."""
+    return "vec" if _vec_shape(D, P, "bwd") else "scalar"
+
+
+ROUTES = {"vec": 0, "scalar": 1}  # the C side's route numbers
+_fns: Dict[str, object] = {}
+
+
+def _kernel_fn(name: str):
+    """The C entry point msda_<name> of one kernel library, its ctypes signature set
+    once: the tensor pointers (4 forward, 7 backward), B, S, M, D, Lq, L, P, the
+    (H, W) pairs, the two dtype flags, the route and the stream."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(f"ms_deform_attn_{name}"), f"msda_{name}")
+        fn.argtypes = [ctypes.c_void_p] * (4 if name == "fwd" else 7) + [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _shapes_array(spatial_shapes: SpatialShapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[v for hw in spatial_shapes for v in hw])
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """t itself when its data is `nbytes`-aligned, else an aligned copy (the vector
+    routes load 8 or 16 bytes at a time)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def _check(value, spatial_shapes, loc, attn):
     if value.device.type != "cuda":
         raise ValueError(f"the MSDA kernel takes CUDA tensors, got {value.device}")
@@ -123,6 +205,8 @@ def _check(value, spatial_shapes, loc, attn):
         raise ValueError(f"value must be (B, S, M, D), got {tuple(value.shape)}")
     B, S, M, D = value.shape
     L = len(spatial_shapes)
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"{L} levels: the kernel takes 1 to {MAX_LEVELS}")
     if S != sum(h * w for h, w in spatial_shapes):
         raise ValueError(f"value has {S} tokens, spatial_shapes {spatial_shapes}")
     if loc.dim() != 6 or loc.shape[0] != B or loc.shape[2] != M \
@@ -141,52 +225,52 @@ def _check(value, spatial_shapes, loc, attn):
 
 
 def _launch(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    """K1 on CUDA tensors, by the route the shape takes."""
     B, S, M, D, Lq, L, P = _check(value, spatial_shapes, loc, attn)
-    lib = _build.load("ms_deform_attn_fwd")
-    fn = lib.msda_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    route = fwd_route(D, P)
+    if route == "vec":
+        value, loc = _aligned(value, 16), _aligned(loc, 8)
+    fn = _kernel_fn("fwd")
     out = torch.empty(B, Lq, M * D, dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                 B, S, M, D, Lq, L, P, shapes,
+                 B, S, M, D, Lq, L, P, _shapes_array(spatial_shapes),
                  int(value.dtype == torch.bfloat16), int(attn.dtype == torch.bfloat16),
-                 stream)
+                 ROUTES[route], stream)
     if err != 0:
-        raise RuntimeError(f"MSDA forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"MSDA forward kernel ({route} route) launch failed: CUDA error "
+                           f"{err}")
     ms_deform_attn.launches += 1
     return out
 
 
 def _launch_bwd(value, spatial_shapes, loc, attn, grad_out):
+    """K2 on CUDA tensors, by the route the shape takes."""
     B, S, M, D, Lq, L, P = _check(value, spatial_shapes, loc, attn)
     g = grad_out.contiguous()
     if tuple(g.shape) != (B, Lq, M * D) or g.dtype != value.dtype \
             or g.device != value.device:
         raise ValueError(f"grad_out {tuple(g.shape)} {g.dtype} on {g.device}, expected "
                          f"{(B, Lq, M * D)} {value.dtype} on {value.device}")
-    lib = _build.load("ms_deform_attn_bwd")
-    fn = lib.msda_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    # f32 sums for d_value (atomics), cast once at the end
+    route = bwd_route(D, P)
+    if route == "vec":
+        value, loc, g = _aligned(value, 16), _aligned(loc, 8), _aligned(g, 16)
+    fn = _kernel_fn("bwd")
+    # f32 sums (atomics), cast once at the end
     d_value = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(loc)
     d_attn = torch.empty_like(attn)
-    shapes = (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
                  d_value.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
-                 B, S, M, D, Lq, L, P, shapes,
+                 B, S, M, D, Lq, L, P, _shapes_array(spatial_shapes),
                  int(value.dtype == torch.bfloat16), int(attn.dtype == torch.bfloat16),
-                 stream)
+                 ROUTES[route], stream)
     if err != 0:
-        raise RuntimeError(f"MSDA backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"MSDA backward kernel ({route} route) launch failed: CUDA error "
+                           f"{err}")
     ms_deform_attn.bwd_launches += 1
     return d_value.to(value.dtype), d_loc, d_attn
 

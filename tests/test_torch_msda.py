@@ -117,3 +117,35 @@ def test_kernel_launch_refuses_cpu_tensors():
                         _inputs(shapes, 1, 2, 4, 5, 2, seed=5))
     with pytest.raises(ValueError, match="CUDA"):
         _launch(value, shapes, loc, attn)
+
+
+@pytest.mark.parametrize("D, P, route", [
+    (32, 4, "vec"),  # the path's heads: 4 threads of 8 channels per (b, q, m)
+    (8, 4, "vec"),  # d_model 64 over 8 heads (configs/tiny_synthetic.yaml)
+    (256, 4, "vec"), (16, 3, "vec"),
+    (24, 4, "scalar"),  # D / 8 = 3 threads would straddle a warp
+    (4, 4, "scalar"), (512, 4, "scalar"),
+    (8, 8, "scalar"),  # 256 groups x 8 samples x 32 bytes of staging > 48 KB
+])
+def test_fwd_route_by_shape(D, P, route):
+    from neurips2023_soc_torch.ops.ms_deform_attn import fwd_route
+
+    assert fwd_route(D, P) == route
+
+
+def test_kernel_library_hashes_its_headers(tmp_path, monkeypatch):
+    """An edited header that a kernel includes changes the library's name, so
+    the kernel is rebuilt; a header it does not include does not."""
+    from neurips2023_soc_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert sorted(p.name for p in _build.sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    before = _build.library_path("k")
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert _build.library_path("k") == before
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build.library_path("k") != before

@@ -164,3 +164,18 @@ def test_kernel_backward_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _launch_bwd(torch.from_numpy(v), shapes, torch.from_numpy(loc),
                     torch.from_numpy(a), torch.from_numpy(g))
+
+
+
+@pytest.mark.parametrize("D, P, route", [
+    (32, 4, "vec"),  # the path's heads
+    (8, 4, "vec"),  # d_model 64 over 8 heads (configs/tiny_synthetic.yaml)
+    (128, 4, "vec"), (16, 3, "vec"),
+    (24, 4, "scalar"),  # D / 8 = 3 threads would straddle a warp
+    (4, 4, "scalar"), (256, 4, "scalar"),  # 32 threads per group: over 1024 per CTA
+    (8, 32, "scalar"),  # the hit table of 32 points per level exceeds shared memory
+])
+def test_bwd_route_by_shape(D, P, route):
+    from neurips2023_soc_torch.ops.ms_deform_attn import bwd_route
+
+    assert bwd_route(D, P) == route
