@@ -15,9 +15,11 @@ prints no result):
                MSDA_CASES: the path's encoder and decoder (B = 16 for K1, the
                clip; B = 8 for K2, the training shape), a small pyramid with a
                size-1 level and uniform locations, D = 8 (the tiny config's
-               heads), P = 3 (the run-time point loop) and D = 24, each on the
-               route its shape takes (fwd_route / bwd_route: vec, or scalar at
-               D = 24), every route in f32 and in bf16.
+               heads), P = 3 (the run-time point loop), D = 24 and the encoder
+               at D = 64 (K2's plan then needs more than the 48 KB default of
+               shared memory: the per-card raised limit), each on the route its
+               shape takes on this card (fwd_route / bwd_route: vec, or scalar
+               at D = 24), every route in f32 and in bf16.
                K1: f32 rtol = atol = 1e-5; bf16 against the plain version in
                f32 on the same bf16-rounded inputs, rtol = atol = 1.6e-2 (two
                bf16 ulps of the once-rounded output).
@@ -31,9 +33,9 @@ prints no result):
                inputs and cotangent: the bf16 outputs (d_value, d_attn) within
                atol = two bf16 ulps of their scale (2 * 2**-7 * max|output|);
                d_loc, f32 in every case, at the f32 tolerance above.
-               Control: the bf16 encoder case again with the last point of
-               every level zeroed in attn on the kernel side must fail (K1's
-               output; K2's d_value and d_loc). K1 and K2 are timed as 20
+               Control: the bf16 encoder cases (D = 32 and 64) again with the
+               last point of every level zeroed in attn on the kernel side must
+               fail (K1's output; K2's d_value and d_loc). K1 and K2 are timed as 20
                back-to-back launches per event pair.
                K3 (Swin window attention) at the four Video-Swin-B stage
                shapes of a 16 x 360 x 640 clip, masked and unmasked (stage 3
@@ -70,6 +72,30 @@ prints no result):
   6. small   — a small SOC in float32 on the card against the same model on
                the CPU (plain versions), as the reference on a small input,
                with swin_attn_impl xla and pallas.
+  7. davis   — Ref-DAVIS-17 inference as cli/infer_davis.py runs it, at
+               configs/davis.yaml's widths (Video-Swin-T, roberta-base,
+               d_model 256, 3+3 deformable layers, bf16, seeded random init)
+               with swin_attn_impl: pallas: one synthetic video of 80 x 480 x
+               854 uint8 frames (resized on the card to 360 x 640), 2 objects,
+               4 expressions each, through davis_videos / item_fn /
+               merge_annotators over run_videos_pipelined with per-chunk
+               trajectories and probabilities (chunks of 64 + 16 frames):
+               exactly 12 K3 per backbone pass and 6 K1 per (chunk,
+               expression), no plain call; index masks (80, 480, 854) in
+               {0, 1, 2}; J&F of each annotation variant against the synthetic
+               ground truth (evaluation/davis.py) finite and in range; each K3
+               and K1 call of the first chunk held against the plain version in
+               f32; K3 at Video-Swin-T's stage shapes (heads 3 to 24, a trained
+               table's bias spread) held against the plain version in f32 with
+               the zeroed-bias control, and timed beside SDPA.
+  8. a2d-eval — build_a2d_evaluator at configs/a2d_sentences.yaml's widths
+               (Video-Swin-T, 8-frame windows, 320 x 576, bf16) over 8
+               centre-frame-annotated SyntheticRVOSDataset samples: every mAP
+               and P@ metric finite and in [0, 1], 6 K1 per forward, one
+               forward's 6 K1 calls held against the plain version in f32, and
+               a2d_device_step on the card against the CPU on one forward's
+               outputs (scores within 1e-6, masks equal on at least 99.99 % of
+               the pixels).
 Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
 path's shapes (a copy of this script in an older checkout times that
@@ -78,6 +104,7 @@ JSON object of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
 import statistics
@@ -250,7 +277,29 @@ MSDA_CASES = [
     ("P=3 (run-time point loop) f32", "vec", 300, SMALL_LEVELS, torch.float32, True, D, 3),
     ("D=24 f32", "scalar", 300, SMALL_LEVELS, torch.float32, True, 24, P),
     ("D=24 bf16", "scalar", 300, SMALL_LEVELS, torch.bfloat16, True, 24, P),
+    # K2's 64-group plan needs 53,248 bytes of shared memory at D = 64, above the 48 KB
+    # default: the raised per-card limit
+    ("D=64 encoder f32", "vec", sum(h * w for h, w in LEVELS), LEVELS, torch.float32, False,
+     64, P),
+    ("D=64 encoder bf16", "vec", sum(h * w for h, w in LEVELS), LEVELS, torch.bfloat16,
+     False, 64, P),
 ]
+
+CONTROL_CASES = ("encoder bf16", "D=64 encoder bf16")  # with the drop-a-point control
+
+
+def k2_vec_plan(D: int, P: int, groups: int) -> tuple:
+    """(groups per CTA, dynamic shared memory) of the plan K2's library takes for a vec
+    launch on this card (csrc/ms_deform_attn_bwd.cu:msda_bwd_vec_plan)."""
+    fn = _build.load("ms_deform_attn_bwd").msda_bwd_vec_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * 2)()
+    err = fn(D, P, groups, plan)
+    if err != 0:
+        raise RuntimeError(f"K2 takes no vec plan at D={D}, P={P}, {groups} groups "
+                           f"(code {err})")
+    return plan[0], plan[1]
 
 
 def miss_ratio(got, want, rtol, atol) -> float:
@@ -265,7 +314,7 @@ def fwd_tol(dtype) -> float:
 def check_msda() -> dict:
     """K1 against the plain version on every case of MSDA_CASES (B = 16 at the
     path's pyramid, B = 2 elsewhere), each on the route its shape takes. A
-    control reruns the bf16 encoder case with the last point of every level
+    control reruns each case of CONTROL_CASES with the last point of every level
     zeroed in attn on the kernel side and raises unless that fails the
     tolerance. Times the kernel as 20 back-to-back calls per event pair."""
     report = {}
@@ -284,7 +333,7 @@ def check_msda() -> dict:
         torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
                                    msg=lambda m: f"MSDA kernel vs plain, {name}: {m}")
         control = ""
-        if name == "encoder bf16":  # one dropped sample per level must show
+        if name in CONTROL_CASES:  # one dropped sample per level must show
             dropped = attn.clone()
             dropped[..., -1] = 0
             miss = miss_ratio(ms_deform_attn(value, levels, loc, dropped), want, tol, tol)
@@ -365,15 +414,25 @@ def bwd_tols(x, w):
 def check_msda_bwd() -> dict:
     """K2 against the plain backward on every case of MSDA_CASES (B = 8, the
     training shape, at the path's pyramid; B = 2 elsewhere), through autograd,
-    each on the route its shape takes; the bf16 encoder case's control drops the
-    last point of each level from attn on the kernel side and must fail. Times
+    each on the route its shape takes; the control of each case of CONTROL_CASES
+    drops the last point of each level from attn on the kernel side and must fail. Times
     the kernel as 20 back-to-back launches per event pair."""
     report = {}
     for i, (name, route, Lq, levels, dtype, uniform, dim, pts) in enumerate(MSDA_CASES):
-        if msda_mod.bwd_route(dim, pts) != route:
+        if msda_mod.bwd_route(dim, pts, "cuda") != route:
             raise RuntimeError(f"K2 {name}: the shape takes route "
-                               f"{msda_mod.bwd_route(dim, pts)}, expected {route}")
+                               f"{msda_mod.bwd_route(dim, pts, 'cuda')} on this card, "
+                               f"expected {route}")
         B = T_TRAIN if levels == LEVELS else 2
+        plan = ""
+        if route == "vec":
+            G, smem = k2_vec_plan(dim, pts, B * Lq * M)
+            if dim == 64 and smem <= 48 * 1024:
+                raise RuntimeError(f"K2 {name}: the plan needs {smem} bytes of shared memory, "
+                                   "not above the 48 KB default")
+            plan = (f", {G} groups per CTA, {smem} of the card's "
+                    f"{msda_mod.card_smem_room(torch.device('cuda'))} bytes of dynamic shared "
+                    f"memory")
         value, loc, attn = msda_inputs(Lq, levels, dtype, uniform, seed=10 + i, B=B, dim=dim,
                                        points=pts)
         g = torch.randn(B, Lq, M * dim, generator=torch.Generator().manual_seed(i))
@@ -391,10 +450,10 @@ def check_msda_bwd() -> dict:
                 x.float(), w, rtol=rtol, atol=atol,
                 msg=lambda m: f"MSDA backward kernel vs plain, {name}, {oname}: {m}")
             errs.append(err)
-            log(f"[kernels] ms_deform_attn_bwd {name} ({route} route, B={B}, D={dim}, "
+            log(f"[kernels] ms_deform_attn_bwd {name} ({route} route{plan}, B={B}, D={dim}, "
                 f"P={pts}) {oname} {x.dtype}: max_abs_err {err:.3e} (rtol {rtol}, "
                 f"atol {atol:.3e})")
-        if name == "encoder bf16":  # one dropped sample per level must show
+        if name in CONTROL_CASES:  # one dropped sample per level must show
             dropped = attn.clone()
             dropped[..., -1] = 0
             wrong = msda_mod._launch_bwd(value, levels, loc, dropped, g)
@@ -425,6 +484,12 @@ def check_msda_bwd() -> dict:
         f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     log(f"[kernels] ms_deform_attn_bwd decoder bf16 Lq=20: kernel {dec_ms:.4f} ms, "
         f"bound {dec_bound:.4f} ms")
+    for name in ("D=64 encoder f32", "D=64 encoder bf16"):
+        v64, l64, a64, _, g64 = report[name]["inputs"]
+        ms64 = time_ms(lambda: msda_mod._launch_bwd(v64, LEVELS, l64, a64, g64), reps=20)
+        b64, by64 = msda_bwd_bound_ms(v64, LEVELS, l64, a64)
+        log(f"[kernels] ms_deform_attn_bwd {name} {tuple(v64.shape)}: kernel {ms64:.4f} ms "
+            f"(20 launches per timing), bound {b64:.4f} ms ({by64})")
     return dict(name="ms_deform_attn_bwd", route="cuda",
                 note="vec route: 8-channel slices, a block's hits on one corner merged in a "
                      "shared-memory hash table, 16-byte vector reductions of d_value",
@@ -503,6 +568,50 @@ def wattn_bound_ms(q, bias, ids):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_k3(q, k, v, bias, ids_t, plain: bool = False) -> dict:
+    """K3, SDPA and the bound at one shape (20 back-to-back calls per timing);
+    with `plain`, the plain version too. SDPA is given, where there is no
+    mask, the (1, H, N, N) bias broadcast over the windows; where there is,
+    the bias plus the region mask, which differs per window, as a (B_, H, N, N)
+    tensor."""
+    B_, H, N, _ = q.shape
+    full, what = bias[None].to(q.dtype), "(1, H, N, N) bias"
+    if ids_t is not None:
+        nW = ids_t.shape[0]
+        full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
+        full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
+        what = "(B_, H, N, N) bias + mask"
+    with torch.no_grad():
+        t = {"ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t), iters=10, reps=20),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=full), iters=10, reps=20)}
+        if plain:
+            t["plain_ms"] = time_ms(lambda: window_attention_ref(q, k, v, bias, ids_t), iters=10)
+    del full
+    t["bound_ms"], t["bound_by"] = wattn_bound_ms(q, bias, ids_t)
+    t["sdpa_mask"] = what
+    return t
+
+
+def log_k3_time(tag: str, name: str, shape, t: dict) -> None:
+    log(f"[{tag}] window_attention {name} {tuple(shape)}: kernel {t['ms']:.4f} ms, "
+        + (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t else "")
+        + f"SDPA ({t['sdpa_mask']}) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, bf16 tensor-core peak for operations)")
+
+
+def k3_bias_control(name, q, k, v, bias, ids_t, want, rtol, atol) -> float:
+    """The control of a K3 check: the same comparison with the bias zeroed on the
+    kernel side, which must fail the tolerance. Returns its error / tolerance."""
+    with torch.no_grad():
+        unbiased = window_attention(q, k, v, torch.zeros_like(bias), ids_t)
+    miss = ((unbiased.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+    if miss <= 1.0:
+        raise RuntimeError(f"window attention {name}: the tolerance cannot see the bias "
+                           f"(zeroed, error {miss:.3f} of the tolerance)")
+    return miss
+
+
 def check_window_attention() -> dict:
     """K3 against window_attention_ref on the card at the Video-Swin-B
     shapes of a 16 x 360 x 640 clip (token grids 16 x 90 x 160, 16 x 45 x 80,
@@ -564,15 +673,9 @@ def check_window_attention() -> dict:
         torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol,
                                    msg=lambda m: f"window attention kernel vs plain, {name}: {m}")
         control = ""
-        if N > 1:  # the control: the same comparison with the bias zeroed on the kernel side
-            with torch.no_grad():
-                unbiased = window_attention(q, k, v, torch.zeros_like(bias), ids_t)
-            miss = ((unbiased.float() - want).abs() / (atol + rtol * want.abs())).max().item()
-            if miss <= 1.0:
-                raise RuntimeError(f"window attention {name}: the tolerance cannot see the "
-                                   f"bias (zeroed, error {miss:.3f} of the tolerance)")
+        if N > 1:
+            miss = k3_bias_control(name, q, k, v, bias, ids_t, want, rtol, atol)
             control = f"; bias zeroed: {miss:.1f}x the tolerance"
-            del unbiased
         log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: max_abs_err {err:.3e} "
             f"(rtol {rtol}, atol {atol:.3e}){control}")
         report[name] = {"err": err, "inputs": (q, k, v, bias, ids_t)}
@@ -582,32 +685,10 @@ def check_window_attention() -> dict:
     for s, (_, _, blocks) in stages.items():
         for mask in ("masked", "unmasked"):
             name = f"stage {s} {mask} bf16"
-            q, k, v, bias, ids_t = report[name]["inputs"]
-            B_, H, N, _ = q.shape
-            # unmasked: the (1, H, N, N) bias, broadcast over the windows; masked: the bias
-            # plus the region mask, which differs per window, as a (B_, H, N, N) tensor
-            full, what = bias[None].to(q.dtype), "(1, H, N, N) bias"
-            if ids_t is not None:
-                nW = ids_t.shape[0]
-                full = (bias[None, None] + mask_from_ids(ids_t)[None, :, None]).to(q.dtype)
-                full = full.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
-                what = "(B_, H, N, N) bias + mask"
-            with torch.no_grad():
-                t = {"ms": time_ms(lambda: window_attention(q, k, v, bias, ids_t),
-                                   iters=10, reps=20),
-                     "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                         q, k, v, attn_mask=full), iters=10, reps=20)}
-                if s in (1, 3) and mask == "masked":
-                    t["plain_ms"] = time_ms(lambda: window_attention_ref(q, k, v, bias, ids_t),
-                                            iters=10)
-            del full
-            t["bound_ms"], t["bound_by"] = wattn_bound_ms(q, bias, ids_t)
+            t = time_k3(*report[name]["inputs"], plain=s in (1, 3) and mask == "masked")
             for key in clip:
                 clip[key] += blocks // 2 * t[key]
-            log(f"[kernels] window_attention {name} {(B_, H, N, 32)}: kernel {t['ms']:.4f} ms, "
-                + (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t else "")
-                + f"SDPA ({what}) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']}, bf16 tensor-core peak for operations)")
+            log_k3_time("kernels", name, report[name]["inputs"][0].shape, t)
             timed[name] = t
     log(f"[kernels] window_attention per 16 x {HEIGHT} x {WIDTH} clip (sum of launches x time "
         f"over its {K3_PER_CLIP} blocks, half of them masked): kernel {clip['ms']:.4f} ms, "
@@ -709,6 +790,48 @@ def main_path() -> dict:
                 masks=[m for (m,) in results], **timings)
 
 
+def k3_ref_windows(q, k, v, bias, ids, chunk: int = 256):
+    """window_attention_ref in f32 over slices of `chunk` windows (one clip,
+    so B_ == nW and the region ids slice with the windows), so the scores of
+    a 64-frame stage 1 are never held at once."""
+    if ids is not None and ids.shape[0] != q.shape[0]:
+        return window_attention_ref(q.float(), k.float(), v.float(), bias, ids)
+    return torch.cat([window_attention_ref(
+        q[i:i + chunk].float(), k[i:i + chunk].float(), v[i:i + chunk].float(), bias,
+        None if ids is None else ids[i:i + chunk]) for i in range(0, q.shape[0], chunk)])
+
+
+def checked_kernels(run) -> tuple:
+    """run() with every K3 and K1 call held against its plain version in f32
+    on the same inputs: K3 at two bf16 ulps of scale, K1 at the kernel phase's
+    tolerance. Returns the per-call error / tolerance ratios (K3, K1)."""
+    k3_ratios, k1_ratios = [], []
+    launch = msda_mod._launch
+
+    def checked_k3(q, k, v, bias, ids):
+        out = window_attention(q, k, v, bias, ids)
+        want = k3_ref_windows(q, k, v, bias, ids)
+        k3_ratios.append((out.float() - want).abs().max().item()
+                         / (2 * 2.0 ** -7 * want.abs().max().item()))
+        return out
+
+    def checked_k1(value, spatial_shapes, loc, attn, *args, **kwargs):
+        out = launch(value, spatial_shapes, loc, attn, *args, **kwargs)
+        want = ms_deform_attn_torch(value.float(), spatial_shapes, loc, attn.float())
+        tol = fwd_tol(value.dtype)
+        k1_ratios.append(miss_ratio(out, want, tol, tol))
+        return out
+
+    try:
+        video_swin.window_attention = checked_k3
+        msda_mod._launch = checked_k1
+        run()
+    finally:
+        video_swin.window_attention = window_attention
+        msda_mod._launch = launch
+    return k3_ratios, k1_ratios
+
+
 def k3_path(e2e: dict) -> dict:
     """Phase e2e's workload and weights with swin_attn_impl: pallas, through
     EnginePool (one engine on card 0) and run_videos_pipelined; raises unless
@@ -791,35 +914,9 @@ def k3_path(e2e: dict) -> dict:
     # after the timed clip, whose peak memory it would raise: the model's own K3 calls of
     # one clip, each held against the plain version in f32 (this checks the backbone's
     # strides and region ids; its 0.02-std init bias is too small for the tolerance to see,
-    # which the kernel phase's trained-size bias and its control cover)
-    ratios = []
-
-    def checked(q, k, v, bias, ids):
-        out = window_attention(q, k, v, bias, ids)
-        want = window_attention_ref(q.float(), k.float(), v.float(), bias, ids)
-        ratios.append((out.float() - want).abs().max().item()
-                      / (2 * 2.0 ** -7 * want.abs().max().item()))
-        return out
-
-    # and the clip's 6 K1 calls, each held against the plain version in f32 on the same
-    # inputs at the kernel phase's tolerance
-    k1_ratios = []
-    launch = msda_mod._launch
-
-    def checked_k1(value, spatial_shapes, loc, attn, *args, **kwargs):
-        out = launch(value, spatial_shapes, loc, attn, *args, **kwargs)
-        want = ms_deform_attn_torch(value.float(), spatial_shapes, loc, attn.float())
-        tol = fwd_tol(value.dtype)
-        k1_ratios.append(miss_ratio(out, want, tol, tol))
-        return out
-
-    try:
-        video_swin.window_attention = checked
-        msda_mod._launch = checked_k1
-        engine.infer_video(videos[0], texts[0])
-    finally:
-        video_swin.window_attention = window_attention
-        msda_mod._launch = launch
+    # which the kernel phase's trained-size bias and its control cover), and the clip's 6
+    # K1 calls at the kernel phase's tolerance
+    ratios, k1_ratios = checked_kernels(lambda: engine.infer_video(videos[0], texts[0]))
     if len(ratios) != K3_PER_CLIP or max(ratios) > 1.0:
         raise RuntimeError(f"K3 on the model's inputs: {len(ratios)} calls, error / tolerance "
                            f"up to {max(ratios):.3f}")
@@ -1001,6 +1098,299 @@ def train_path(smi: str, out_dir: str) -> dict:
                 step_ms=step_ms)
 
 
+# ---------------------------------------------------------------- DAVIS and A2D eval
+DAVIS_T, DAVIS_H, DAVIS_W = 80, 480, 854  # DAVIS-17's frame size, about its mean length
+DAVIS_TEXTS = (  # object-major: exp id = obj * 4 + anno
+    "the red ball", "a red ball rolling to the right", "red round object",
+    "the red ball crossing the field",
+    "the blue box", "a blue box sliding down", "blue square object",
+    "the blue box moving down the frame")
+K3_PER_PASS_T = 12  # Video-Swin-T: 2 + 2 + 6 + 2 blocks
+SWIN_T_STAGES = {1: (3, 2), 2: (6, 2), 3: (12, 6), 4: (24, 2)}  # heads, blocks
+A2D_SAMPLES = 8
+
+
+class SyntheticDavisVideo:
+    """data/davis.py:ReferDAVISDataset's interface over one synthetic video:
+    80 uint8 frames of 480 x 854 with two moving objects (a red disk, a blue
+    box) on a textured background, 4 expressions per object. Frames are
+    resized on the card to the config's eval size as the test transforms
+    would; no JPEG is decoded (PIL is not among the card machine's packages).
+    `gt` holds the (T, H, W) index masks at the original size."""
+
+    def __init__(self, short: int, longest: int, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        T, H, W = DAVIS_T, DAVIS_H, DAVIS_W
+        yy, xx = np.mgrid[:H, :W].astype(np.float32)
+        base = (60 + 40 * np.sin(xx / 37.0)[..., None] * np.cos(yy / 23.0)[..., None]
+                + rng.randint(0, 40, (H, W, 3))).clip(0, 255).astype(np.uint8)
+        frames = np.repeat(base[None], T, 0)
+        self.gt = np.zeros((T, H, W), np.uint8)
+        for t in range(T):
+            disk = (xx - (120 + 6 * t)) ** 2 + (yy - 260 - 60 * np.sin(t / 9)) ** 2 < 70 ** 2
+            box = (np.abs(xx - 600 + 2 * t) < 80) & (np.abs(yy - (90 + 3 * t)) < 55)
+            frames[t][disk] = (220, 30, 30)
+            frames[t][box] = (30, 40, 220)
+            self.gt[t][disk] = 1
+            self.gt[t][box] = 2  # the box in front
+        from neurips2023_soc_torch.data.transforms import size_with_aspect_ratio
+
+        oh, ow = size_with_aspect_ratio(H, W, short, longest)
+        x = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float()
+        x = F.interpolate(x, size=(oh, ow), mode="bilinear", antialias=True,
+                          align_corners=False)
+        self.frames = x.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+        names = [f"{t:05d}" for t in range(T)]
+        self.samples_list = [("synthetic", names, {"exp": e, "exp_id": str(i)})
+                             for i, e in enumerate(DAVIS_TEXTS)]
+
+    def __len__(self):
+        return len(self.samples_list)
+
+    def get_text(self, idx: int) -> str:
+        return " ".join(self.samples_list[idx][2]["exp"].lower().split())
+
+    def __getitem__(self, idx: int) -> dict:
+        vid, names, exp = self.samples_list[idx]
+        return {"frames": self.frames, "text": self.get_text(idx), "video_metadata": {
+            "video_id": vid, "frame_indices": list(names),
+            "resized_frame_size": tuple(self.frames.shape[1:3]),
+            "original_frame_size": (DAVIS_H, DAVIS_W), "exp_id": exp["exp_id"]}}
+
+
+def swin_t_k3_times(T: int) -> dict:
+    """K3 at Video-Swin-T's four stage shapes of a T x 360 x 640 chunk (heads 3, 6,
+    12, 24), masked and unmasked, with a trained table's bias spread: each held
+    against window_attention_ref in f32 at the kernel phase's bf16 tolerance, with
+    the zeroed-bias control; then K3, SDPA and the bound timed, and summed over one
+    backbone pass (12 blocks, half of them shifted)."""
+    win = (8, 7, 7)
+    per_pass = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    rows = {}
+    for s, (heads, blocks) in SWIN_T_STAGES.items():
+        grid = (T, -(-HEIGHT // 2 ** (s + 1)), -(-WIDTH // 2 ** (s + 1)))
+        nW, N, ids = window_geometry(*grid, win, True)
+        for mask in ("masked", "unmasked"):
+            name = f"Swin-T stage {s} {mask} bf16"
+            inputs = wattn_inputs(nW, heads, N, ids if mask == "masked" else None,
+                                  torch.bfloat16, seed=40 + s)
+            with torch.no_grad():
+                got = window_attention(*inputs)
+                want = k3_ref_windows(*inputs)
+            atol = 2 * 2.0 ** -7 * want.abs().max().item()
+            err = (got.float() - want).abs().max().item()
+            if err > atol:
+                raise RuntimeError(f"[davis] window attention kernel vs plain, {name}: "
+                                   f"max_abs_err {err:.3e} above atol {atol:.3e}")
+            miss = k3_bias_control(name, *inputs, want, 0.0, atol)
+            log(f"[davis] window_attention {name} {tuple(inputs[0].shape)}: max_abs_err "
+                f"{err:.3e} (rtol 0.0, atol {atol:.3e}); bias zeroed: {miss:.1f}x the "
+                f"tolerance")
+            del got, want
+            t = time_k3(*inputs)
+            log_k3_time("davis", name, inputs[0].shape, t)
+            rows[name] = t
+            for key in per_pass:
+                per_pass[key] += blocks // 2 * t[key]
+            del inputs
+    log(f"[davis] window_attention per Video-Swin-T backbone pass of a {T} x {HEIGHT} x {WIDTH} "
+        f"chunk (sum of launches x time over its {K3_PER_PASS_T} blocks): kernel "
+        f"{per_pass['ms']:.4f} ms, SDPA {per_pass['library_ms']:.4f} ms, bound "
+        f"{per_pass['bound_ms']:.4f} ms")
+    return rows
+
+
+def davis_path(smi: str) -> dict:
+    """Ref-DAVIS-17 inference as cli/infer_davis.py runs it, at configs/davis.yaml's
+    widths with swin_attn_impl: pallas: one synthetic 80 x 480 x 854 video of 2
+    objects (8 expressions) through davis_videos / item_fn / merge_annotators
+    over run_videos_pipelined, probabilities per chunk (64 + 16 frames); J&F of
+    every annotation variant against the synthetic ground truth; each K3 and K1
+    call of the first chunk held against its plain version; K3 checked and timed
+    at Video-Swin-T's stage shapes."""
+    from concurrent.futures import ThreadPoolExecutor
+    from functools import partial
+
+    from neurips2023_soc_torch.cli import infer_davis
+    from neurips2023_soc_torch.cli.eval_davis import _split_objects
+    from neurips2023_soc_torch.cli.infer_refytb import build_engine
+    from neurips2023_soc_torch.evaluation.davis import evaluate_sequences
+    from neurips2023_soc_torch.inference import DEFAULT_TIME_BUCKETS, eval_size_buckets
+
+    cfg = load_config(ROOT / "configs" / "davis.yaml", overrides={"swin_attn_impl": "pallas"})
+    widths = (cfg.backbone, cfg.DeformTransformer["d_model"], cfg.text_encoder_type,
+              cfg.compute_dtype)
+    if widths != ("video-swin-t", 256, "roberta-base", "bfloat16"):
+        raise RuntimeError(f"configs/davis.yaml changed: {widths}")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    engine = build_engine(cfg, model, torch.device("cuda"),
+                          eval_size_buckets(cfg.eval_short_size, cfg.eval_max_size))
+    ds = SyntheticDavisVideo(cfg.eval_short_size, cfg.eval_max_size)
+    videos = infer_davis.davis_videos(ds)
+    item_fn = partial(infer_davis.item_fn, ds)
+    chunk = max(cfg.get("time_buckets") or DEFAULT_TIME_BUCKETS)
+    chunks = -(-DAVIS_T // chunk)
+    log(f"[davis] built SOC video-swin-t bf16 (swin_attn_impl pallas) and the synthetic "
+        f"video {ds.frames.shape} (from {DAVIS_T} x {DAVIS_H} x {DAVIS_W}) in "
+        f"{time.perf_counter() - t0:.1f} s; {len(videos)} video, {len(ds)} expressions, "
+        f"{chunks} chunks of up to {chunk} frames")
+    t0 = time.perf_counter()
+    engine.infer_video_multi(**{**item_fn(dict(videos[0])), "texts": [ds.get_text(0)]})
+    torch.cuda.synchronize()
+    log(f"[davis] warm-up (one expression) in {time.perf_counter() - t0:.1f} s")
+
+    merge_s = []
+
+    def merge(w, probs):  # the CLI's merge, timed: it runs on the host after the fetch
+        t = time.perf_counter()
+        out = infer_davis.merge_annotators(w, probs)
+        merge_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    merged = run_videos_pipelined(engine, videos, item_fn, merge)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = dict(k3=window_attention.launches, k3_plain=window_attention.plain_calls,
+               xla_attn=window_attention_torch.calls, k1=ms_deform_attn.launches,
+               k1_plain=ms_deform_attn.plain_calls)
+    want = dict(k3=K3_PER_PASS_T * chunks, k3_plain=0, xla_attn=0,
+                k1=MSDA_PER_CLIP * chunks * len(ds), k1_plain=0)
+    if got != want:
+        raise RuntimeError(f"[davis] kernel counts {got}, expected {want}")
+    for a, m in enumerate(merged):
+        if m.shape != (DAVIS_T, DAVIS_H, DAVIS_W) or m.dtype != np.uint8 \
+                or not set(np.unique(m).tolist()) <= {0, 1, 2}:
+            raise RuntimeError(f"[davis] annotator {a}: index masks {m.shape} {m.dtype} "
+                               f"values {np.unique(m)[:8]}")
+    log(f"[davis] {smi}: {len(ds)} expressions of one {DAVIS_T}-frame video in {wall:.3f} s "
+        f"= {DAVIS_T / wall:.2f} engine frames/s ({DAVIS_T * len(ds) / wall:.2f} "
+        f"expression-frames/s), of which the host merge of the 4 annotators {merge_s[0]:.3f} "
+        f"s; peak memory {peak:.2f} GiB; counts {got}")
+
+    gt = _split_objects(ds.gt, [1, 2])
+
+    def jf(m):
+        return evaluate_sequences({"synthetic": (gt, _split_objects(m))})["global"]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(merged)) as ex:
+        scores = list(ex.map(jf, merged))
+    for a, sc in enumerate(scores):
+        bad = {k: v for k, v in sc.items() if not np.isfinite(v)
+               or not (-1.0 <= v <= 1.0 if "Decay" in k else 0.0 <= v <= 1.0)}
+        if bad:
+            raise RuntimeError(f"[davis] annotator {a}: J&F out of range {bad}")
+    log(f"[davis] J&F against the synthetic ground truth ({time.perf_counter() - t0:.1f} s, "
+        f"random weights): " + "; ".join(
+            f"anno_{a} J&F {sc['J&F-Mean']:.4f} J {sc['J-Mean']:.4f} F {sc['F-Mean']:.4f}"
+            for a, sc in enumerate(scores)))
+
+    first = item_fn(dict(videos[0]))
+    first["frames"] = first["frames"][:chunk]
+    k3_ratios, k1_ratios = checked_kernels(lambda: engine.infer_video_multi(**first))
+    if len(k3_ratios) != K3_PER_PASS_T or max(k3_ratios) > 1.0:
+        raise RuntimeError(f"[davis] K3 on the model's inputs: {len(k3_ratios)} calls, error / "
+                           f"tolerance {k3_ratios}")
+    if len(k1_ratios) != MSDA_PER_CLIP * len(ds) or max(k1_ratios) > 1.0:
+        raise RuntimeError(f"[davis] K1 on the model's inputs: {len(k1_ratios)} calls, error / "
+                           f"tolerance {k1_ratios}")
+    log(f"[davis] first chunk ({chunk} frames): K3 on the model's {len(k3_ratios)} inputs, error "
+        f"up to {max(k3_ratios):.3f} of the two-ulp tolerance; K1 on its {len(k1_ratios)} "
+        f"inputs, error up to {max(k1_ratios):.3f} of the tolerance")
+    swin_t_k3_times(chunk)
+    return dict(wall=wall, fps=DAVIS_T / wall, peak=peak, k3=got["k3"], k1=got["k1"])
+
+
+def a2d_eval_path(smi: str) -> dict:
+    """The A2D-Sentences evaluator at configs/a2d_sentences.yaml's widths:
+    build_a2d_evaluator over 8 centre-frame-annotated synthetic samples of 8 x
+    320 x 576 at the config's eval batch size; every mAP and P@ metric in [0, 1],
+    6 K1 launches per forward, one forward's 6 K1 calls held against the plain
+    version, and a2d_device_step on the card against the same step on the CPU on
+    one forward's outputs."""
+    from neurips2023_soc_torch.data import collate_batch
+    from neurips2023_soc_torch.evaluators import build_a2d_evaluator, evaluating, forward_batch
+    from neurips2023_soc_torch.inference import eval_size_buckets
+    from neurips2023_soc_torch.models.postprocessing import a2d_device_step
+
+    cfg = load_config(ROOT / "configs" / "a2d_sentences.yaml")
+    h, w = cfg.eval_short_size, cfg.eval_max_size
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    tok = build_tokenizer(cfg.text_encoder_type, cfg.text_bucket)
+    ds = SyntheticRVOSDataset(num_samples=A2D_SAMPLES, num_frames=cfg.window_size,
+                              frame_size=(h, w), seed=0, center_frame_only=True)
+    collate_kwargs = dict(size_buckets=eval_size_buckets(h, w),
+                          time_buckets=(cfg.window_size,))
+    bs = int(cfg.eval_batch_size)
+    evaluate = build_a2d_evaluator(ds, tok, eval_batch_size=bs,
+                                   calculate_pr=cfg.calculate_precision_and_iou_metrics,
+                                   collate_kwargs=collate_kwargs)
+    batch = collate_batch([ds[i] for i in range(bs)], tok, **collate_kwargs)
+    with evaluating(model):
+        forward_batch(model, batch)  # warm-up
+    torch.cuda.synchronize()
+    log(f"[a2d-eval] built SOC {cfg.backbone} bf16 and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s; {A2D_SAMPLES} samples of {cfg.window_size} x {h} "
+        f"x {w}, eval batch {bs}")
+
+    reset_counters()
+    t0 = time.perf_counter()
+    metrics = evaluate(model, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    forwards = -(-A2D_SAMPLES // bs)
+    got = dict(k1=ms_deform_attn.launches, k1_plain=ms_deform_attn.plain_calls,
+               k3=window_attention.launches, xla_attn=window_attention_torch.calls)
+    want = dict(k1=MSDA_PER_CLIP * forwards, k1_plain=0, k3=0,
+                xla_attn=K3_PER_PASS_T * forwards)
+    if got != want:
+        raise RuntimeError(f"[a2d-eval] kernel counts {got}, expected {want}")
+    ranged = {k: v for k, v in metrics.items() if k.startswith(("mAP", "P@"))}
+    bad = {k: v for k, v in ranged.items() if not (np.isfinite(v) and 0.0 <= v <= 1.0)}
+    if len(ranged) < 6 or bad:
+        raise RuntimeError(f"[a2d-eval] metrics {metrics}")
+    if model.training:
+        raise RuntimeError("[a2d-eval] the evaluator left the model in training mode")
+
+    def one_forward():
+        with evaluating(model):
+            forward_batch(model, batch)
+
+    k3_ratios, k1_ratios = checked_kernels(one_forward)
+    if k3_ratios or len(k1_ratios) != MSDA_PER_CLIP or max(k1_ratios) > 1.0:
+        raise RuntimeError(f"[a2d-eval] in-model checks of one forward: K3 {k3_ratios}, "
+                           f"K1 error / tolerance {k1_ratios}")
+    log(f"[a2d-eval] K1 on the model's {len(k1_ratios)} inputs of one forward: error / "
+        f"tolerance " + ", ".join(f"{r:.3f}" for r in k1_ratios)
+        + f" (worst {max(k1_ratios):.3f}); no K3 call (swin_attn_impl xla)")
+
+    with evaluating(model):
+        fwd_ms = time_ms(lambda: forward_batch(model, batch), iters=10, warmup=2)
+        out = forward_batch(model, batch)
+        pc, pm = out["pred_cls"][-1], out["pred_masks"][-1]
+        pad = batch["pixels"].shape[2:4]
+        card = a2d_device_step(pc, pm, *pad)
+        host = a2d_device_step(pc.cpu(), pm.cpu(), *pad)
+    score_err = (card[0].cpu() - host[0]).abs().max().item()
+    agree = (card[1].cpu() == host[1]).float().mean().item()
+    if score_err > 1e-6 or agree < 0.9999:
+        raise RuntimeError(f"[a2d-eval] a2d_device_step card vs CPU: scores {score_err:.3e}, "
+                           f"masks agree on {agree:.6f} of the pixels")
+    log(f"[a2d-eval] {smi}: evaluator {wall:.3f} s for {A2D_SAMPLES} samples = "
+        f"{wall / A2D_SAMPLES * 1e3:.2f} ms per sample; forward {fwd_ms:.2f} ms (CUDA events, "
+        f"batch {bs}); counts {got}; a2d_device_step card vs CPU: scores {score_err:.3e}, "
+        f"masks agree on {agree:.6f} of {card[1].numel()} pixels")
+    log("[a2d-eval] metrics (random weights): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in metrics.items()))
+    return dict(wall=wall, fwd_ms=fwd_ms, k1=got["k1"])
+
+
 def small_reference(attn_impl: str) -> None:
     """A small float32 SOC on the card against the same weights on the CPU
     (plain versions: window_attention_torch for xla, window_attention_ref
@@ -1078,6 +1468,8 @@ def main(argv) -> int:
     k2["launches"] = train["bwd_launches"]
     small_reference("xla")
     small_reference("pallas")
+    davis_path(smi)
+    a2d_eval_path(smi)
 
     log(smi)
     keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -51,13 +51,16 @@ def add_device_arg(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
-def build_engine(config, model, device: torch.device, size_buckets):
+def build_engine(config, model, device: torch.device, size_buckets,
+                 time_buckets_key: str = "time_buckets"):
     """One engine on `device`, or an EnginePool over every visible card when
-    this single process sees more than one."""
+    this single process sees more than one. The engine's time buckets are
+    the config's `time_buckets_key` entry (the engine's default when unset)."""
     kwargs = dict(text_encoder_type=config.text_encoder_type,
                   text_bucket=config.get("text_bucket", 32),
-                  time_buckets=config.get("time_buckets"), size_buckets=size_buckets,
-                  pixel_format=config.get("pixel_format", "auto"))
+                  time_buckets=config.get(time_buckets_key), size_buckets=size_buckets,
+                  pixel_format=config.get("pixel_format", "auto"),
+                  probs_dtype=config.get("probs_dtype", "float32"))
     distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
     if device.type == "cuda" and not distributed and torch.cuda.device_count() > 1:
         return EnginePool(model, **kwargs)

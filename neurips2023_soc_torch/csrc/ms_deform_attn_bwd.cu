@@ -39,18 +39,23 @@
 //          d_value with two 16-byte vector reductions (atomicAdd on float4, one
 //          REDG.E.ADD.F32x4 each) into an f32 buffer that the wrapper zeroes and casts.
 //          64 groups per CTA; fewer (down to a full warp) where the grid would not fill
-//          two waves of the card, as for the decoder's 20 queries.
+//          two waves of the card's SMs, as for the decoder's 20 queries. A shape whose
+//          64-group plan needs more shared memory than the card lets a CTA opt into
+//          takes the scalar route.
 //   scalar (any other D): one warp per (b, q, m), lanes over channels, f32 atomics per
 //          channel (the first port of this kernel).
 // d_value is summed by atomics, in an order that varies from run to run.
 //
 // C interface (bound with ctypes): msda_bwd(...) launches on the given stream and
-// returns cudaGetLastError() as an int.
+// returns cudaGetLastError() as an int; msda_bwd_smem_room() gives the dynamic shared
+// memory a vec-route CTA may opt into on the current card, the limit the wrapper's route
+// rule uses; msda_bwd_vec_plan() gives the plan a vec launch would take.
+
+#include <mutex>
 
 #include "msda_common.cuh"
 
 #define MSDA_MAX_GROUPS 64  // (b, q, m) per CTA
-#define MSDA_SMEM_LIMIT 232448  // the shared memory a CTA may opt into on sm_90
 
 // -------------------------------------------------------------------- vec route
 // Per group and sample: {int4 corner tokens, int4 {fx, fy, attn, inside bits}}.
@@ -295,8 +300,67 @@ __global__ void msda_bwd_scalar_kernel(const T* __restrict__ value,
 // ------------------------------------------------------------------- launches
 enum { ROUTE_VEC = 0, ROUTE_SCALAR = 1 };
 
-// The vec route's plan for a shape: groups per CTA (64, halved while the grid would not
-// fill two waves of 132 SMs, down to a full warp), hash-table size, shared memory.
+// What a launch needs to know of its card, found on the card's first launch and kept: the
+// SM count (the vec plan fills two waves of them), the dynamic shared memory a CTA may opt
+// into (the card's opt-in limit less the kernel's static shared memory; a plan above it
+// takes the scalar route), and per kernel instance the dynamic shared memory it has been
+// allowed on that card. Guarded by a mutex: ctypes releases the GIL, so two host threads
+// may launch at once, on one card or on two.
+#define MSDA_MAX_CARDS 64
+#define MSDA_VEC_INSTANCES 8  // value type x attn type x (P = 4, run-time P)
+struct BwdCard {
+  int sms = 0;
+  size_t room = 0;
+  size_t allowed[MSDA_VEC_INSTANCES] = {};  // 0: the 48 KB default
+};
+static BwdCard bwd_cards[MSDA_MAX_CARDS];
+static std::mutex bwd_cards_mu;
+
+template <typename T> constexpr int type_bit() { return 0; }
+template <> constexpr int type_bit<__nv_bfloat16>() { return 1; }
+
+template <typename T, typename A, int kP>
+constexpr int instance() { return type_bit<T>() * 4 + type_bit<A>() * 2 + (kP ? 1 : 0); }
+
+// The largest static shared memory of the vec kernel's instances on the current card.
+template <typename T, typename A, int kP>
+static cudaError_t static_smem(size_t& most) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, msda_bwd_vec_kernel<T, A, kP>);
+  if (e == cudaSuccess && fa.sharedSizeBytes > most) most = fa.sharedSizeBytes;
+  return e;
+}
+
+// The current card's entry, its attributes looked up on first use; call under the mutex.
+static int current_card(BwdCard*& card) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MSDA_MAX_CARDS) return (int)cudaErrorInvalidDevice;
+  card = &bwd_cards[dev];
+  if (card->sms == 0) {
+    typedef __nv_bfloat16 bf;
+    int s = 0, o = 0;
+    size_t st = 0;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    const cudaError_t errs[] = {
+        err, static_smem<float, float, 4>(st), static_smem<float, float, 0>(st),
+        static_smem<float, bf, 4>(st), static_smem<float, bf, 0>(st),
+        static_smem<bf, float, 4>(st), static_smem<bf, float, 0>(st),
+        static_smem<bf, bf, 4>(st), static_smem<bf, bf, 0>(st)};
+    for (cudaError_t e : errs)
+      if (e != cudaSuccess) return (int)e;
+    card->sms = s;
+    card->room = (size_t)o > st ? (size_t)o - st : 0;
+  }
+  return 0;
+}
+
+// The vec route's plan for a shape on a card: groups per CTA (64, halved while the grid
+// would not fill two waves of the card's SMs, down to a full warp), hash-table size,
+// shared memory.
 struct VecPlan {
   int G, tab_bits;
   size_t smem;
@@ -311,30 +375,34 @@ static void size_plan(int G, int D, int P, VecPlan& vp) {
             + (size_t)3 * 4 * nhit + (size_t)4 * G * D;
 }
 
-// False unless the shape fits the route at 64 groups per CTA (the wrapper's rule).
-static bool vec_plan(int D, int P, int64_t groups, VecPlan& vp) {
+// False unless the shape fits the route at 64 groups per CTA within the card's room for
+// dynamic shared memory (the wrapper's rule, ops/ms_deform_attn.py:_vec_shape).
+static bool vec_plan(int D, int P, int64_t groups, const BwdCard& card, VecPlan& vp) {
   const int T8 = D / 8;
   if (D % 8 != 0 || T8 < 1 || T8 > 16 || (T8 & (T8 - 1)) != 0 || P < 1) return false;
   size_plan(MSDA_MAX_GROUPS, D, P, vp);
-  if (vp.smem > MSDA_SMEM_LIMIT) return false;
+  if (vp.smem > card.room) return false;
   const int g_min = 32 / T8 > 8 ? 32 / T8 : 8;
   int G = MSDA_MAX_GROUPS;
-  while (G > g_min && (groups + G - 1) / G < 2 * 132) G /= 2;
+  while (G > g_min && (groups + G - 1) / G < 2 * (int64_t)card.sms) G /= 2;
   size_plan(G, D, P, vp);
   return true;
 }
 
-// Raises an instance's dynamic shared memory limit once per size it needs (the
-// attribute belongs to the function on every card).
+// Raises an instance's dynamic shared memory limit on the current card to what a plan
+// needs, once per (card, instance, larger size): the attribute is per card (the runtime
+// sets it in the card's context), so a second card needs its own call. Call under the
+// mutex.
 template <typename T, typename A, int kP>
-static int allow_smem(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return 0;
+static int allow_smem(BwdCard& card, size_t bytes) {
+  size_t& allowed = card.allowed[instance<T, A, kP>()];
+  if (bytes <= 48 * 1024 || bytes <= allowed) return 0;
   const cudaError_t e = cudaFuncSetAttribute(msda_bwd_vec_kernel<T, A, kP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)bytes);
-  if (e == cudaSuccess) allowed = bytes;
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  allowed = bytes;
+  return 0;
 }
 
 template <typename T, typename A>
@@ -346,19 +414,24 @@ static int launch(int route, const void* value, const void* loc, const void* att
   if (route == ROUTE_VEC) {
     const int64_t groups = (int64_t)B * Lq * M;
     VecPlan vp;
-    if (!vec_plan(D, P, groups, vp) || (int64_t)S * MSDA_MAX_GROUPS >= 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
+    int err;
+    {
+      std::lock_guard<std::mutex> lock(bwd_cards_mu);
+      BwdCard* card = nullptr;
+      if ((err = current_card(card)) != 0) return err;
+      if (!vec_plan(D, P, groups, *card, vp) || (int64_t)S * MSDA_MAX_GROUPS >= 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+      err = P == 4 ? allow_smem<T, A, 4>(*card, vp.smem) : allow_smem<T, A, 0>(*card, vp.smem);
+      if (err != 0) return err;
+    }
     const int64_t blocks = (groups + vp.G - 1) / vp.G;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     const unsigned threads = vp.G * (D / 8);
-    int err;
     if (P == 4) {
-      if ((err = allow_smem<T, A, 4>(vp.smem)) != 0) return err;
       msda_bwd_vec_kernel<T, A, 4><<<(unsigned)blocks, threads, vp.smem, stream>>>(
           (CT)value, (const float*)loc, (const A*)attn, (CT)g, (float*)d_value,
           (float*)d_loc, (A*)d_attn, S, M, D, Lq, L, P, lv, groups, vp.tab_bits);
     } else {
-      if ((err = allow_smem<T, A, 0>(vp.smem)) != 0) return err;
       msda_bwd_vec_kernel<T, A, 0><<<(unsigned)blocks, threads, vp.smem, stream>>>(
           (CT)value, (const float*)loc, (const A*)attn, (CT)g, (float*)d_value,
           (float*)d_loc, (A*)d_attn, S, M, D, Lq, L, P, lv, groups, vp.tab_bits);
@@ -396,4 +469,28 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
     return attn_bf16 ? launch<bf, bf>(MSDA_BWD_ARGS) : launch<bf, float>(MSDA_BWD_ARGS);
   return attn_bf16 ? launch<float, bf>(MSDA_BWD_ARGS) : launch<float, float>(MSDA_BWD_ARGS);
 #undef MSDA_BWD_ARGS
+}
+
+// The dynamic shared memory a vec-route CTA may opt into on the current card (found and
+// kept as a launch finds it), or minus a CUDA error.
+extern "C" int msda_bwd_smem_room() {
+  std::lock_guard<std::mutex> lock(bwd_cards_mu);
+  BwdCard* card = nullptr;
+  const int err = current_card(card);
+  return err != 0 ? -err : (int)card->room;
+}
+
+// The vec route's plan for `groups` (b, q, m) at (D, P) on the current card, as a launch
+// takes it: plan[0] groups per CTA, plan[1] dynamic shared memory in bytes. Returns 0, 1
+// where the shape takes no vec plan on this card, or minus a CUDA error.
+extern "C" int msda_bwd_vec_plan(int D, int P, long long groups, int* plan) {
+  std::lock_guard<std::mutex> lock(bwd_cards_mu);
+  BwdCard* card = nullptr;
+  const int err = current_card(card);
+  if (err != 0) return -err;
+  VecPlan vp;
+  if (!vec_plan(D, P, (int64_t)groups, *card, vp)) return 1;
+  plan[0] = vp.G;
+  plan[1] = (int)vp.smem;
+  return 0;
 }

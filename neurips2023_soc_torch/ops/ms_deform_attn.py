@@ -120,20 +120,23 @@ def ms_deform_attn_torch_bwd(
 # Shapes, not failures, choose a kernel's route: the C side refuses a route the shape
 # does not fit, and the wrapper raises.
 VEC_THREADS = 256  # threads per CTA of K1's vec route
-SMEM_LIMIT = 232_448  # the shared memory a CTA may opt into on the H100 (and H200)
+# K2's room for dynamic shared memory on the H100 (and H200): the 232,448 bytes a CTA may
+# opt into less the vec kernel's 16 static bytes. The route rule's limit where no card is
+# named; on a card, the rule takes that card's own room (card_smem_room).
+SMEM_LIMIT = 232_432
 
 
 def _pow2(n: int) -> bool:
     return n >= 1 and n & (n - 1) == 0
 
 
-def _vec_shape(D: int, P: int, kernel: str) -> bool:
+def _vec_shape(D: int, P: int, kernel: str, smem_limit: int = SMEM_LIMIT) -> bool:
     """D / 8 threads of 8 channels each per (b, q, m), D / 8 a power of two (so a group
     never straddles a warp) up to 32 for K1 and 16 for K2, and the shared memory the
     kernel stages within its limit: K1 32 bytes per sample of its 256 threads' groups
     under 48 KB; K2 (csrc/ms_deform_attn_bwd.cu:vec_plan) 64 groups' samples (32 bytes
     each), a hash table of twice the level's 64 * P * 4 hits (8 bytes a slot), 12 bytes
-    per hit and the 64 cotangent slices, within SMEM_LIMIT."""
+    per hit and the 64 cotangent slices, within `smem_limit`."""
     t8 = D // 8
     if D % 8 or not _pow2(t8) or P < 1:
         return False
@@ -141,7 +144,7 @@ def _vec_shape(D: int, P: int, kernel: str) -> bool:
         return t8 <= 32 and VEC_THREADS // t8 * P * 32 <= 48 * 1024
     hits = 64 * P * 4
     slots = 1 << max(4, (2 * hits - 1).bit_length())
-    return t8 <= 16 and 64 * P * 32 + 8 * slots + 12 * hits + 64 * D * 4 <= SMEM_LIMIT
+    return t8 <= 16 and 64 * P * 32 + 8 * slots + 12 * hits + 64 * D * 4 <= smem_limit
 
 
 def fwd_route(D: int, P: int) -> str:
@@ -151,15 +154,39 @@ def fwd_route(D: int, P: int) -> str:
     return "vec" if _vec_shape(D, P, "fwd") else "scalar"
 
 
-def bwd_route(D: int, P: int) -> str:
+def bwd_route(D: int, P: int, device=None) -> str:
     """K2's route for a head width D and P points: "vec" (8-channel slices, a CTA's
     hits on one corner merged in shared memory before a 16-byte vector reduction of
-    d_value) or "scalar" (one warp per (b, q, m))."""
-    return "vec" if _vec_shape(D, P, "bwd") else "scalar"
+    d_value) or "scalar" (one warp per (b, q, m)). On a CUDA `device` the shared
+    memory rule takes that card's room for dynamic shared memory, as the C side does;
+    otherwise the H100's."""
+    limit = SMEM_LIMIT
+    if device is not None and torch.device(device).type == "cuda":
+        limit = card_smem_room(torch.device(device))
+    return "vec" if _vec_shape(D, P, "bwd", limit) else "scalar"
 
 
 ROUTES = {"vec": 0, "scalar": 1}  # the C side's route numbers
 _fns: Dict[str, object] = {}
+_optin: Dict[int, int] = {}
+
+
+def card_smem_room(device: torch.device) -> int:
+    """The dynamic shared memory a K2 vec-route CTA may opt into on a CUDA card (the
+    card's opt-in limit less the kernel's static shared memory), as K2's library found
+    it (csrc/ms_deform_attn_bwd.cu:msda_bwd_smem_room), kept per card."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    limit = _optin.get(index)
+    if limit is None:
+        fn = _build.load("ms_deform_attn_bwd").msda_bwd_smem_room
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        with torch.cuda.device(index):
+            limit = fn()
+        if limit < 0:
+            raise RuntimeError(f"K2 could not read card {index}'s shared memory limit: CUDA "
+                               f"error {-limit}")
+        _optin[index] = limit
+    return limit
 
 
 def _kernel_fn(name: str):
@@ -253,7 +280,7 @@ def _launch_bwd(value, spatial_shapes, loc, attn, grad_out):
             or g.device != value.device:
         raise ValueError(f"grad_out {tuple(g.shape)} {g.dtype} on {g.device}, expected "
                          f"{(B, Lq, M * D)} {value.dtype} on {value.device}")
-    route = bwd_route(D, P)
+    route = bwd_route(D, P, value.device)
     if route == "vec":
         value, loc, g = _aligned(value, 16), _aligned(loc, 8), _aligned(g, 16)
     fn = _kernel_fn("bwd")

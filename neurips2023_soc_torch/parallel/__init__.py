@@ -1,3 +1,5 @@
-from .multihost import barrier, initialize_distributed, is_main_process
+from .multihost import (barrier, broadcast_object, gather_objects, initialize_distributed,
+                        is_main_process)
 
-__all__ = ["barrier", "initialize_distributed", "is_main_process"]
+__all__ = ["barrier", "broadcast_object", "gather_objects", "initialize_distributed",
+           "is_main_process"]

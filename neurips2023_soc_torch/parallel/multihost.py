@@ -1,12 +1,11 @@
 """Multi-process coordination on torch.distributed (the port's counterpart
 of neurips2023_soc_tpu/parallel/multihost.py). In a single process every
-helper is a no-op.
-
-`gather_objects` and `broadcast_object` come with the multi-card training
-slice."""
+helper is a no-op (gather_objects and broadcast_object are the identity).
+"""
 from __future__ import annotations
 
 import os
+from typing import Any, List
 
 import torch
 import torch.distributed as dist
@@ -58,5 +57,30 @@ def is_main_process() -> bool:
 
 def barrier(name: str = "barrier") -> None:
     """dist.barrier across every process; `name` labels the call site."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+    if _group_running():
         dist.barrier()
+
+
+def _group_running() -> bool:
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def gather_objects(obj: Any) -> List[Any]:
+    """Every process's picklable `obj`, in rank order (reference misc.py:24-64
+    all_gather): torch.distributed.all_gather_object when a process group is
+    running, [obj] in a single process."""
+    if not _group_running():
+        return [obj]
+    out: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def broadcast_object(obj: Any, root: int = 0) -> Any:
+    """Rank `root`'s picklable `obj` on every process (the reference's
+    output-dir sync, trainer.py:118-122); `obj` itself in a single process."""
+    if not _group_running():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=root)
+    return box[0]

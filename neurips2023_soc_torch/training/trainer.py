@@ -3,10 +3,12 @@ without its mesh, ZeRO-1 and wandb).
 
 Behaviour kept from the reference trainer: 3 lr groups with MultiStepLR
 (gamma 0.2 for A2D, 0.1 otherwise) counted in updates, grad accumulation,
-abort on a non-finite loss, the best checkpoint by lowest train loss, at most
-5 epoch checkpoints (10 when pretraining) plus the best, resume, and a
-JSON-lines `log.txt` per epoch. The loss is read on the host every step (the
-abort check), as in JAX.
+abort on a non-finite loss, an evaluation hook every epoch (its metrics go
+into `log.txt` as `eval_<metric>`), the best checkpoint by mAP for A2D (by the
+mean mask mAP when pretraining with val sets, else by the lowest train loss),
+at most 5 epoch checkpoints (10 when pretraining) plus the best, resume, and
+a JSON-lines `log.txt` per epoch. The loss is read on the host every step
+(the abort check), as in JAX.
 """
 from __future__ import annotations
 
@@ -30,21 +32,24 @@ from .train_step import TrainState, make_train_step
 
 class Trainer:
     def __init__(self, config, train_batches: Callable[[int], Iterable[Dict]],
-                 steps_per_epoch: int,
+                 steps_per_epoch: int, evaluate_fn: Optional[Callable] = None,
                  device: Optional[Union[str, torch.device]] = None):
         """train_batches(epoch) yields host batch dicts (data/collate.py);
-        `device` None means the CUDA card."""
+        evaluate_fn(model, epoch) -> metrics dict, run after every epoch (the
+        evaluators of evaluators.py); `device` None means the CUDA card."""
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config, device=self.device, seed=int(config.seed))
         self.crit_cfg = build_criterion_config(config)
         self.train_batches = train_batches
         self.steps_per_epoch = steps_per_epoch
+        self.evaluate_fn = evaluate_fn
 
         self.dataset_name = config.dataset_name
         self._is_pretrain = self.dataset_name in ("coco", "coco_refer")
         self.total_epochs = config.epochs
         self.epoch = 0
+        self.best_map = 0.0
         self.best_loss = math.inf
         # per step of the last train() call: loss, every loss term,
         # grad_norm, step and data time (host clock)
@@ -119,18 +124,41 @@ class Trainer:
                 "data_time_s": data_time.global_avg,
                 "lr": self._state.optimizer.lr("main"),
             }
-            is_best = epoch_loss < self.best_loss
-            if is_best:
-                self.best_loss = epoch_loss
+            eval_metrics = {}
+            if self.evaluate_fn is not None:
+                eval_metrics = self.evaluate_fn(self.model, self.epoch)
+                log_stats.update({f"eval_{k}": v for k, v in eval_metrics.items()})
+            is_best = self._update_best(eval_metrics, epoch_loss)
             self.save_checkpoint(is_best, log_stats)
             with open(self.output_dir / "log.txt", "a") as f:
                 f.write(json.dumps(log_stats) + "\n")
+
+    def _update_best(self, eval_metrics: Dict, epoch_loss: float) -> bool:
+        """Best by `mAP 0.5:0.95` for A2D, by `mean_mask_mAP` when pretraining
+        with val sets (reference pretrainer.py:234-238), else by the lowest
+        train loss (JAX training/trainer.py:_update_best)."""
+        key = None
+        if self.dataset_name == "a2d_sentences":
+            key = "mAP 0.5:0.95"
+        elif self._is_pretrain and "mean_mask_mAP" in eval_metrics:
+            key = "mean_mask_mAP"
+        if key is not None:
+            m = eval_metrics.get(key, 0.0) or 0.0
+            if m > self.best_map:
+                self.best_map = m
+                return True
+            return False
+        if epoch_loss < self.best_loss:
+            self.best_loss = epoch_loss
+            return True
+        return False
 
     def save_checkpoint(self, is_best: bool, extra: Dict) -> Path:
         state = {"model": self.model.state_dict(),
                  "optimizer": self._state.optimizer.state_dict(),
                  "step": self._state.step}
         extra = {k: v for k, v in extra.items() if isinstance(v, (int, float, str))}
+        extra["best_map"] = float(self.best_map)
         extra["best_loss"] = float(self.best_loss)
         return self.ckpt.save(self.epoch, state, is_best, extra=extra)
 
@@ -160,4 +188,5 @@ class Trainer:
         self.epoch = epoch + 1
         meta = source.read_meta(epoch)
         if meta:
+            self.best_map = float(meta.get("best_map", self.best_map))
             self.best_loss = float(meta.get("best_loss", self.best_loss))

@@ -30,6 +30,10 @@ NEW_IN_SLICE_3 = ("cli.infer_refytb", "cli.demo_video", "cli.predict", "evaluato
                   "parallel.multihost", "data.transforms", "data.refer_youtube_vos",
                   "data.a2d_sentences", "utils.colormap", "utils.visualize",
                   "ops.window_attention")
+NEW_IN_SLICE_6 = ("evaluation", "evaluation.rle", "evaluation.coco_eval",
+                  "evaluation.refexp_eval", "evaluation.davis", "models.postprocessing",
+                  "data.davis", "data.prepare_davis", "data.coco_ref", "cli.infer_davis",
+                  "cli.eval_davis")
 
 
 def test_fresh_import_loads_no_jax():
@@ -39,7 +43,7 @@ def test_fresh_import_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     loaded = out.stdout.split("PORT", 1)[1]
-    for name in NEW_IN_SLICE_3:
+    for name in NEW_IN_SLICE_3 + NEW_IN_SLICE_6:
         assert f"'neurips2023_soc_torch.{name}'" in loaded, name
 
 

@@ -2,9 +2,13 @@
 float32 at the tiny shape (video-swin-t, d_model 64, roberta-tiny): the
 optimizer against optax on identical gradients (rtol = atol = 1e-6), VOC's
 training windows (1e-4), dropout and drop path, the stop-gradient on refined
-reference points, the synthetic data, and a short Trainer run with
-checkpoint and resume. One whole train step against JAX is in
+reference points, the synthetic data, a short Trainer run with checkpoint
+and resume, and the per-epoch evaluation hook with best-by-mAP. One whole train step against JAX is in
 tests/test_torch_train_step.py."""
+import json
+import math
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,7 @@ from neurips2023_soc_tpu.data.synthetic import SyntheticRVOSDataset as JaxSynthe
 from neurips2023_soc_tpu.models.text_encoder import build_tokenizer as jax_tokenizer
 from neurips2023_soc_tpu.models.voc import VOC as JaxVOC
 from neurips2023_soc_tpu.training import optim as jax_optim
+from neurips2023_soc_tpu.training.trainer import Trainer as JaxTrainer
 from neurips2023_soc_torch.config import load_config
 from neurips2023_soc_torch.data import SyntheticRVOSDataset, collate_batch, iterate_batches
 from neurips2023_soc_torch.models.common import Dropout, init_weights
@@ -264,3 +269,53 @@ def test_trainer_defaults_to_the_card():
     cfg = load_config("configs/tiny_synthetic.yaml")
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, lambda e: iter(()), 1)
+
+
+def test_trainer_evaluation_hook_and_best_map(tmp_path):
+    """Two A2D epochs with a stub evaluate_fn whose mAP rises, then falls:
+    log.txt carries the eval_ metrics, best_map and the best checkpoint
+    follow JAX's _update_best, and resuming reads best_map back."""
+    cfg = load_config("configs/tiny_synthetic.yaml", overrides={
+        "output_dir": str(tmp_path), "epochs": 2, "dataset_name": "a2d_sentences"})
+    tok = build_tokenizer(cfg.text_encoder_type, cfg.text_bucket)
+    ds = SyntheticRVOSDataset(num_samples=1, num_frames=2, frame_size=(64, 96), seed=0,
+                              center_frame_only=True)
+    maps, calls = [0.3, 0.2], []
+
+    def evaluate(model, epoch):
+        calls.append((epoch, model is tr.model))
+        return {"mAP 0.5:0.95": maps[epoch], "P@0.5": 0.5}
+
+    tr = Trainer(cfg, lambda e: iterate_batches(ds, 1, tok, seed=e, size_buckets=((64, 96),)),
+                 1, evaluate_fn=evaluate, device="cpu")
+    tr.train()
+    assert calls == [(0, True), (1, True)]
+    logs = [json.loads(line) for line in (tmp_path / "log.txt").read_text().splitlines()]
+    assert [log["eval_mAP 0.5:0.95"] for log in logs] == maps
+    assert all(log["eval_P@0.5"] == 0.5 for log in logs)
+    ref = SimpleNamespace(dataset_name="a2d_sentences", _is_pretrain=False, best_map=0.0,
+                          best_loss=math.inf)
+    want = [JaxTrainer._update_best(ref, {"mAP 0.5:0.95": m}, 1.0) for m in maps]
+    assert want == [True, False] and tr.best_map == ref.best_map == 0.3
+    assert tr.ckpt.best_epoch() == 0
+    assert tr.ckpt.read_meta(1)["best_map"] == 0.3
+    tr.best_map = 0.0
+    tr.load_checkpoint()  # resume reads best_map back
+    assert tr.best_map == 0.3 and tr.epoch == 2
+
+
+@pytest.mark.parametrize("dataset", ["a2d_sentences", "coco", "ref_youtube_vos"])
+def test_update_best_equals_jax(dataset):
+    """Best by mAP 0.5:0.95 (A2D), by mean_mask_mAP when pretraining with val
+    sets and by the train loss without them, else by the train loss."""
+    port = Trainer.__new__(Trainer)
+    port.dataset_name, port._is_pretrain = dataset, dataset == "coco"
+    port.best_map, port.best_loss = 0.0, math.inf
+    ref = SimpleNamespace(dataset_name=dataset, _is_pretrain=dataset == "coco",
+                          best_map=0.0, best_loss=math.inf)
+    for metrics, loss in (({"mAP 0.5:0.95": 0.2, "mean_mask_mAP": 0.1}, 5.0),
+                          ({"mAP 0.5:0.95": 0.4, "mean_mask_mAP": 0.05}, 6.0),
+                          ({"mAP 0.5:0.95": None, "mean_mask_mAP": 0.3}, 4.0),
+                          ({}, 3.0), ({"mAP 0.5:0.95": 0.1}, 7.0)):
+        assert port._update_best(metrics, loss) == JaxTrainer._update_best(ref, metrics, loss)
+        assert (port.best_map, port.best_loss) == (ref.best_map, ref.best_loss)
