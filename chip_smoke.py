@@ -15,9 +15,11 @@ prints no result):
                MSDA_CASES: the path's encoder and decoder (B = 16 for K1, the
                clip; B = 8 for K2, the training shape), a small pyramid with a
                size-1 level and uniform locations, D = 8 (the tiny config's
-               heads), P = 3 (the run-time point loop), D = 24 and the encoder
+               heads), P = 3 (the run-time point loop), D = 24, the encoder
                at D = 64 (K2's plan then needs more than the 48 KB default of
-               shared memory: the per-card raised limit), each on the route its
+               shared memory: the per-card raised limit) and the A2D training
+               step's encoder call (value (16, 3825, 8, 32), bf16, timed beside
+               its bound), each on the route its
                shape takes on this card (fwd_route / bwd_route: vec, or scalar
                at D = 24), every route in f32 and in bf16.
                K1: f32 rtol = atol = 1e-5; bf16 against the plain version in
@@ -67,11 +69,34 @@ prints no result):
                SyntheticRVOSDataset clips of 8 x 360 x 640, batch 1, one epoch
                of 4 steps (the first a warm-up), dropout 0.1, drop path 0.2,
                frozen roberta-base; checkpoint written and read back; then
-               one more step whose 6 K2 calls are each held against the
-               plain backward in f32 on the same inputs (K2's tolerances).
+               one more step whose 6 K1 and 6 K2 calls are each held against
+               the plain versions in f32 on the same inputs (the kernel
+               phase's tolerances).
+     train-a2d — cli/main.run, the training CLI's body, with
+               configs/a2d_sentences.yaml (Video-Swin-T, roberta-base frozen,
+               d_model 256, 3+3 deformable layers, VOC 3+3, bf16, batch 2 of
+               8-frame 320 x 576 windows, 4 loader threads) on 8 synthetic
+               centre-frame-annotated clips (valid_indices on): `train` for one
+               epoch of 4 steps with the per-epoch A2D evaluator over 4 synthetic
+               clips, `resume_train` from the written checkpoint for a second
+               epoch, `test` on a reference .pth.tar of the epoch-2 weights
+               (strict load) whose metrics must equal the epoch's logged ones
+               exactly; every loss finite, grad norm finite and positive,
+               backbone and main parameters moved, the frozen text encoder
+               bit-identical, exactly 6 K1 and 6 K2 launches per step and 6 K1
+               per evaluation forward, no plain MSDA and no K3, every mAP and
+               P@ metric in [0, 1], best by mAP; one step's 6 K1 and 6 K2 calls
+               held against the plain versions in f32 (the kernel phase's
+               tolerances).
+     pretrain — cli/main_pretrain.run with configs/refcoco_pretrain.yaml
+               (batch 8 of single 360 x 640 frames, T = 1) on 16 synthetic frames
+               (2 steps) with build_pretrain_evaluator over one synthetic val
+               split of 4 frames: the same checks, best by mean_mask_mAP.
+               Both print step ms, samples/s, the CUDA-event split of a step,
+               peak memory and the evaluator's ms per sample.
   6. small   — a small SOC in float32 on the card against the same model on
                the CPU (plain versions), as the reference on a small input,
-               with swin_attn_impl xla and pallas.
+               with swin_attn_impl xla and pallas, and at T = 1 (xla).
   7. davis   — Ref-DAVIS-17 inference as cli/infer_davis.py runs it, at
                configs/davis.yaml's widths (Video-Swin-T, roberta-base,
                d_model 256, 3+3 deformable layers, bf16, seeded random init)
@@ -98,8 +123,9 @@ prints no result):
                the pixels).
 Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
-path's shapes (a copy of this script in an older checkout times that
-checkout's kernels: an A/B in one chip call). The second-to-last lines are the card's name/power limit and a
+path's shapes, and `--train-times` only runs phase train (a copy of this
+script in an older checkout runs that checkout's code: an A/B in one chip
+call). The second-to-last lines are the card's name/power limit and a
 JSON object of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -149,6 +175,9 @@ F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12  # dense bf16 tensor-core peak
 # the main path's pyramid at 360 x 640 (strides 8, 16, 32, 64)
 LEVELS = ((45, 80), (23, 40), (12, 20), (6, 10))
+# the A2D training pyramid at 320 x 576; its batch is 2 clips of 8 frames
+A2D_LEVELS = ((40, 72), (20, 36), (10, 18), (5, 9))
+B_A2D = 16
 B_CLIP, M, D, P = 16, 8, 32, 4
 NUM_VIDEOS, T_CLIP, HEIGHT, WIDTH = 3, 16, 360, 640
 MSDA_PER_CLIP = 6  # 3 encoder + 3 decoder layers
@@ -283,7 +312,20 @@ MSDA_CASES = [
      64, P),
     ("D=64 encoder bf16", "vec", sum(h * w for h, w in LEVELS), LEVELS, torch.bfloat16,
      False, 64, P),
+    # the A2D training step's encoder call: value (16, 3825, 8, 32) for K1 and K2
+    ("A2D encoder bf16", "vec", sum(h * w for h, w in A2D_LEVELS), A2D_LEVELS, torch.bfloat16,
+     False, D, P),
 ]
+
+
+def case_batch(levels, kernel: str) -> int:
+    """B of a kernel case: the clip (K1) or the training step (K2) at the
+    main path's pyramid, 16 at the A2D pyramid, 2 elsewhere."""
+    if levels == A2D_LEVELS:
+        return B_A2D
+    if levels == LEVELS:
+        return B_CLIP if kernel == "k1" else T_TRAIN
+    return 2
 
 CONTROL_CASES = ("encoder bf16", "D=64 encoder bf16")  # with the drop-a-point control
 
@@ -322,7 +364,7 @@ def check_msda() -> dict:
         if msda_mod.fwd_route(dim, pts) != route:
             raise RuntimeError(f"K1 {name}: the shape takes route "
                                f"{msda_mod.fwd_route(dim, pts)}, expected {route}")
-        B = B_CLIP if levels == LEVELS else 2
+        B = case_batch(levels, "k1")
         value, loc, attn = msda_inputs(Lq, levels, dtype, uniform, seed=i, B=B, dim=dim,
                                        points=pts)
         got = ms_deform_attn(value, levels, loc, attn)
@@ -360,6 +402,11 @@ def check_msda() -> dict:
         f"grid_sample {t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     log(f"[kernels] ms_deform_attn decoder bf16 Lq=20: kernel {dec_ms:.4f} ms, "
         f"bound {dec_bound:.4f} ms")
+    av, al, aa, alevels = report["A2D encoder bf16"]["inputs"]
+    a2d_ms = time_ms(lambda: ms_deform_attn(av, alevels, al, aa), reps=20)
+    a2d_bound, a2d_by = msda_bound_ms(av, alevels, al, aa)
+    log(f"[kernels] ms_deform_attn A2D encoder bf16 {tuple(av.shape)} Lq={al.shape[1]}: kernel "
+        f"{a2d_ms:.4f} ms (20 calls per timing), bound {a2d_bound:.4f} ms ({a2d_by})")
     return dict(name="ms_deform_attn_fwd", route="cuda",
                 note="vec route: 8-channel slices, geometry once per sample; f32 CUDA cores",
                 source="neurips2023_soc_torch/csrc/ms_deform_attn_fwd.cu",
@@ -423,7 +470,7 @@ def check_msda_bwd() -> dict:
             raise RuntimeError(f"K2 {name}: the shape takes route "
                                f"{msda_mod.bwd_route(dim, pts, 'cuda')} on this card, "
                                f"expected {route}")
-        B = T_TRAIN if levels == LEVELS else 2
+        B = case_batch(levels, "k2")
         plan = ""
         if route == "vec":
             G, smem = k2_vec_plan(dim, pts, B * Lq * M)
@@ -484,6 +531,11 @@ def check_msda_bwd() -> dict:
         f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     log(f"[kernels] ms_deform_attn_bwd decoder bf16 Lq=20: kernel {dec_ms:.4f} ms, "
         f"bound {dec_bound:.4f} ms")
+    av, al, aa, alevels, ag = report["A2D encoder bf16"]["inputs"]
+    a2d_ms = time_ms(lambda: msda_mod._launch_bwd(av, alevels, al, aa, ag), reps=20)
+    a2d_bound, a2d_by = msda_bwd_bound_ms(av, alevels, al, aa)
+    log(f"[kernels] ms_deform_attn_bwd A2D encoder bf16 {tuple(av.shape)} Lq={al.shape[1]}: "
+        f"kernel {a2d_ms:.4f} ms (20 launches per timing), bound {a2d_bound:.4f} ms ({a2d_by})")
     for name in ("D=64 encoder f32", "D=64 encoder bf16"):
         v64, l64, a64, _, g64 = report[name]["inputs"]
         ms64 = time_ms(lambda: msda_mod._launch_bwd(v64, LEVELS, l64, a64, g64), reps=20)
@@ -962,6 +1014,102 @@ def profile_backbone(model, video, tag: str, top: int = 12) -> None:
         log(f"[{tag}]   {ms:8.3f} ms {ms / busy:6.1%}  {name[:110]}")
 
 
+def step_outputs(model, batch, crit_cfg, rng, valid: bool = False):
+    """One training forward and the criterion's total loss on a device batch
+    (the trainer's step without its optimizer and host reads)."""
+    out = model(batch["pixels"], batch["pad_mask"], batch["text_ids"], batch["text_mask"],
+                sample_sizes=batch["sample_sizes"],
+                valid_indices=batch["valid_indices"] if valid else None, training=True, rng=rng)
+    return total_loss(compute_criterion(out, {k: batch[k] for k in TARGET_KEYS}, crit_cfg),
+                      crit_cfg)
+
+
+def step_split(model, batch, crit_cfg, optimizer, valid: bool = False) -> tuple:
+    """Medians over 3 steps of forward + criterion, backward and optimizer,
+    each between CUDA events."""
+    rng = torch.Generator(device="cuda")
+    split = []
+    for i in range(3):
+        rng.manual_seed(i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = step_outputs(model, batch, crit_cfg, rng, valid)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.apply_gradients()
+        ev[3].record()
+        ev[3].synchronize()
+        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    return tuple(statistics.median(c) for c in zip(*split))
+
+
+def checked_step(model, batch, crit_cfg, valid: bool = False) -> tuple:
+    """One forward and backward with each K1 call held against the plain
+    forward (checked_kernels) and each K2 call against the plain backward in
+    f32 on the same inputs at the kernel phase's tolerances; the gradients
+    are dropped after. Returns the per-call error / tolerance ratios (K1, K2)."""
+    k2_ratios = []
+    launch_bwd = msda_mod._launch_bwd
+
+    def checked_k2(value, spatial_shapes, loc, attn, grad_out, *args, **kwargs):
+        got = launch_bwd(value, spatial_shapes, loc, attn, grad_out, *args, **kwargs)
+        want = ms_deform_attn_torch_bwd(value.float(), spatial_shapes, loc, attn.float(),
+                                        grad_out.float())
+        k2_ratios.append(max(miss_ratio(x, w, *bwd_tols(x, w)) for x, w in zip(got, want)))
+        return got
+
+    rng = torch.Generator(device="cuda").manual_seed(3)
+    try:
+        msda_mod._launch_bwd = checked_k2
+        _, k1_ratios = checked_kernels(
+            lambda: step_outputs(model, batch, crit_cfg, rng, valid).backward())
+    finally:
+        msda_mod._launch_bwd = launch_bwd
+    model.zero_grad(set_to_none=True)
+    return k1_ratios, k2_ratios
+
+
+def check_history(tag: str, hist, steps: int) -> None:
+    """Raises unless `steps` steps ran, every loss term finite and the
+    gradient norm finite and positive."""
+    if len(hist) != steps:
+        raise RuntimeError(f"[{tag}] {len(hist)} steps ran, expected {steps}")
+    for i, h in enumerate(hist):
+        bad = [k for k, v in h.items() if not np.isfinite(v)]
+        if bad or not h["grad_norm"] > 0:
+            raise RuntimeError(f"[{tag}] step {i}: non-finite {bad} or grad_norm "
+                               f"{h['grad_norm']}")
+
+
+def check_moved(tag: str, before, after) -> dict:
+    """Raises unless the backbone and the main parameters moved and the
+    frozen text encoder stayed bit-identical (`before` may be on the CPU)."""
+    def changed(prefix=None):
+        return any(not torch.equal(after[k].to(v.device), v) for k, v in before.items()
+                   if (k.startswith(prefix) if prefix else
+                       not k.startswith(("backbone.", "text_encoder."))))
+
+    moved = {"backbone": changed("backbone."), "text": changed("text_encoder."),
+             "main": changed()}
+    if not (moved["backbone"] and moved["main"]) or moved["text"]:
+        raise RuntimeError(f"[{tag}] parameters moved: {moved}; expected backbone and main, "
+                           "not the frozen text encoder")
+    return moved
+
+
+def log_checked_step(tag: str, k1_ratios, k2_ratios) -> None:
+    """Raises unless one step made 6 K1 and 6 K2 calls, each within its
+    tolerance."""
+    if (len(k1_ratios), len(k2_ratios)) != (MSDA_PER_CLIP, MSDA_PER_CLIP) \
+            or max(k1_ratios + k2_ratios) > 1.0:
+        raise RuntimeError(f"[{tag}] one step's kernel calls on the model's inputs, error / "
+                           f"tolerance: K1 {k1_ratios}, K2 {k2_ratios}")
+    log(f"[{tag}] one step on the model's inputs, error / tolerance: K1 "
+        f"{', '.join(f'{r:.3f}' for r in k1_ratios)}; K2 "
+        f"{', '.join(f'{r:.3f}' for r in k2_ratios)} (worst of d_value, d_loc, d_attn)")
+
+
 def train_path(smi: str, out_dir: str) -> dict:
     """The port's Trainer at full width on synthetic clips, writing its log
     and checkpoints under `out_dir`; raises unless every loss is finite, the
@@ -1005,21 +1153,9 @@ def train_path(smi: str, out_dir: str) -> dict:
         raise RuntimeError(f"MSDA counts over {TRAIN_STEPS} steps: {counts}; expected "
                            f"{MSDA_PER_CLIP} forward and backward launches per step")
     hist = trainer.history
-    if len(hist) != TRAIN_STEPS:
-        raise RuntimeError(f"{len(hist)} steps ran, expected {TRAIN_STEPS}")
-    for i, h in enumerate(hist):
-        bad = [k for k, v in h.items() if not np.isfinite(v)]
-        if bad or not h["grad_norm"] > 0:
-            raise RuntimeError(f"step {i}: non-finite {bad} or grad_norm {h['grad_norm']}")
+    check_history("train", hist, TRAIN_STEPS)
     after = model.state_dict()
-    moved = {g: any(not torch.equal(after[k], v) for k, v in before.items()
-                    if k.startswith(prefix))
-             for g, prefix in (("backbone", "backbone."), ("text", "text_encoder."))}
-    moved["main"] = any(not torch.equal(after[k], v) for k, v in before.items()
-                        if not k.startswith(("backbone.", "text_encoder.")))
-    if not (moved["backbone"] and moved["main"]) or moved["text"]:
-        raise RuntimeError(f"parameters moved: {moved}; expected backbone and main, "
-                           "not the frozen text encoder")
+    moved = check_moved("train", before, after)
 
     epoch = trainer.ckpt.latest_epoch()
     saved = trainer.ckpt.restore(epoch, map_location="cuda")
@@ -1037,65 +1173,239 @@ def train_path(smi: str, out_dir: str) -> dict:
     log(f"[train] MSDA counts {counts}; parameters moved {moved}; checkpoint epoch {epoch} "
         f"read back equal")
 
-    # one more step split by CUDA events: forward + criterion, backward,
-    # optimizer (the trainer's step without its host reads)
+    # one more step split by CUDA events, then one step's 6 K1 and 6 K2 calls checked
     batch = device_batch(next(iter(batches(1))), torch.device("cuda"))
-    rng = torch.Generator(device="cuda")
-    split = []
-    for i in range(3):
-        rng.manual_seed(i)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        out = model(batch["pixels"], batch["pad_mask"], batch["text_ids"],
-                    batch["text_mask"], sample_sizes=batch["sample_sizes"], training=True,
-                    rng=rng)
-        loss = total_loss(compute_criterion(out, {k: batch[k] for k in TARGET_KEYS},
-                                            trainer.crit_cfg), trainer.crit_cfg)
-        ev[1].record()
-        del out
-        loss.backward()
-        ev[2].record()
-        state.optimizer.apply_gradients()
-        ev[3].record()
-        ev[3].synchronize()
-        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
-    fwd, bwd, opt = (statistics.median(c) for c in zip(*split))
-
-    # one more forward and backward: the step's 6 K2 calls, each held against the plain
-    # backward in f32 on the same inputs at the kernel phase's tolerances
-    k2_ratios = []
-    launch_bwd = msda_mod._launch_bwd
-
-    def checked_k2(value, spatial_shapes, loc, attn, grad_out, *args, **kwargs):
-        got = launch_bwd(value, spatial_shapes, loc, attn, grad_out, *args, **kwargs)
-        want = ms_deform_attn_torch_bwd(value.float(), spatial_shapes, loc, attn.float(),
-                                        grad_out.float())
-        k2_ratios.append(max(miss_ratio(x, w, *bwd_tols(x, w)) for x, w in zip(got, want)))
-        return got
-
-    rng.manual_seed(3)
-    try:
-        msda_mod._launch_bwd = checked_k2
-        out = model(batch["pixels"], batch["pad_mask"], batch["text_ids"],
-                    batch["text_mask"], sample_sizes=batch["sample_sizes"], training=True,
-                    rng=rng)
-        total_loss(compute_criterion(out, {k: batch[k] for k in TARGET_KEYS},
-                                     trainer.crit_cfg), trainer.crit_cfg).backward()
-    finally:
-        msda_mod._launch_bwd = launch_bwd
-    del out
-    model.zero_grad(set_to_none=True)
-    if len(k2_ratios) != MSDA_PER_CLIP or max(k2_ratios) > 1.0:
-        raise RuntimeError(f"K2 on the model's inputs: {len(k2_ratios)} calls, error / "
-                           f"tolerance {k2_ratios}")
-    log(f"[train] K2 on the {len(k2_ratios)} inputs of one step: error / tolerance "
-        f"{', '.join(f'{r:.3f}' for r in k2_ratios)} (worst of d_value, d_loc, d_attn)")
+    fwd, bwd, opt = step_split(model, batch, trainer.crit_cfg, state.optimizer)
+    log_checked_step("train", *checked_step(model, batch, trainer.crit_cfg))
     log(f"[train] {smi}: step {step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}, host clock, "
         f"loss read every step) = {1e3 / step_ms:.3f} samples/s; CUDA events: forward + "
         f"criterion {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer {opt:.2f} ms; peak "
         f"memory {peak:.2f} GiB")
     return dict(bwd_launches=counts["bwd_launches"], fwd_launches=counts["launches"],
                 step_ms=step_ms)
+
+
+# ---------------------------------------------------------------- training CLIs
+A2D_TRAIN_SAMPLES, A2D_VAL_SAMPLES = 8, 4  # 4 steps of batch 2; the per-epoch evaluator
+PRETRAIN_SAMPLES, PRETRAIN_VAL_SAMPLES = 16, 4  # 2 steps of batch 8
+
+
+class SyntheticRefCOCOVal:
+    """A RefCOCO-style val split of single synthetic 360 x 640 frames: `items`
+    and `imgs` as RefCOCOClipDataset holds them (the referred square's mask as
+    an RLE annotation, its box), samples with the image id and original size
+    as its __getitem__ gives them."""
+
+    def __init__(self, num_samples: int, frame_size, seed: int):
+        from neurips2023_soc_torch.evaluation.rle import encode
+
+        self.ds = SyntheticRVOSDataset(num_samples=num_samples, num_frames=1,
+                                       frame_size=frame_size, seed=seed)
+        h, w = frame_size
+        self.imgs = {i: {"height": h, "width": w} for i in range(num_samples)}
+        self.items = []
+        for i in range(num_samples):
+            s = self.ds[i]
+            x0, y0, x1, y1 = (float(v) for v in s["boxes"][0, 0])
+            self.items.append((i, [{"segmentation": encode(s["masks"][0, 0]),
+                                    "bbox": [x0, y0, x1 - x0, y1 - y0], "iscrowd": 0,
+                                    "area": float(s["masks"][0, 0].sum())}]))
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, idx: int) -> dict:
+        return dict(self.ds[idx], image_id=idx, orig_size=self.ds.frame_size)
+
+
+def msda_counts() -> dict:
+    return {k: getattr(ms_deform_attn, k) for k in
+            ("launches", "bwd_launches", "plain_calls", "plain_bwd_calls")}
+
+
+def expect_counts(tag: str, steps: int, forwards: int) -> dict:
+    """Raises unless the run since reset_counters made 6 K1 and 6 K2 launches
+    per training step, 6 K1 per evaluation forward, no plain MSDA and no K3
+    (training runs the plain window attention: K3 has no backward)."""
+    got = dict(msda_counts(), k3=window_attention.launches)
+    want = {"launches": MSDA_PER_CLIP * (steps + forwards),
+            "bwd_launches": MSDA_PER_CLIP * steps, "plain_calls": 0, "plain_bwd_calls": 0,
+            "k3": 0}
+    if got != want:
+        raise RuntimeError(f"[{tag}] kernel counts {got} over {steps} steps and {forwards} "
+                           f"evaluation forwards; expected {want}")
+    return got
+
+
+def check_ranged(tag: str, metrics: dict, keys) -> dict:
+    """Raises unless there are such metrics and each is finite and in [0, 1]."""
+    ranged = {k: v for k, v in metrics.items() if k in keys}
+    bad = {k: v for k, v in ranged.items() if not (np.isfinite(v) and 0.0 <= v <= 1.0)}
+    if len(ranged) < 6 or bad:
+        raise RuntimeError(f"[{tag}] metrics {metrics}")
+    return ranged
+
+
+def read_log(out_dir: str) -> list:
+    return [json.loads(line) for line in (Path(out_dir) / "log.txt").read_text().splitlines()]
+
+
+def check_best(tag: str, trainer, key: str, out_dir: str) -> None:
+    """Best by `key`: the trainer's best value is the largest logged one (0
+    when none beats the initial 0, as the reference's strict >), and best.json
+    exists exactly when one did."""
+    values = [rec[f"eval_{key}"] for rec in read_log(out_dir)]
+    best_json = (Path(out_dir) / "checkpoints" / "best.json").exists()
+    if trainer.best_map != max([0.0] + values) or best_json != (max(values) > 0):
+        raise RuntimeError(f"[{tag}] best by {key}: {trainer.best_map} from {values}, "
+                           f"best.json {best_json}")
+
+
+def log_training_numbers(tag: str, smi: str, trainer, batch_size: int, peak: float,
+                         valid: bool, eval_samples: int) -> dict:
+    """Step ms (median of the first epoch's steps after the first, host clock)
+    and samples/s; one step split by CUDA events; one step's K1 and K2 calls
+    held against the plain versions; the evaluator's ms per sample."""
+    hist = trainer.history
+    step_ms = statistics.median(h["step_time_s"] for h in hist[1:]) * 1e3
+    batch = device_batch(next(iter(trainer.train_batches(0))), torch.device("cuda"))
+    model, crit = trainer.model, trainer.crit_cfg
+    fwd, bwd, opt = step_split(model, batch, crit, trainer._state.optimizer, valid)
+    log_checked_step(tag, *checked_step(model, batch, crit, valid))
+    t0 = time.perf_counter()
+    trainer.evaluate_fn(model, trainer.epoch + 1)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) / eval_samples * 1e3
+    steps = f"steps 2-{len(hist)}" if len(hist) > 2 else "step 2"
+    log(f"[{tag}] {smi}: step {step_ms:.2f} ms (median of {steps}, host clock, "
+        f"loss read every step) = {batch_size * 1e3 / step_ms:.3f} samples/s; CUDA events: "
+        f"forward + criterion {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer {opt:.2f} ms; "
+        f"peak memory {peak:.2f} GiB; evaluator {eval_ms:.2f} ms per sample")
+    return dict(step_ms=step_ms, eval_ms=eval_ms)
+
+
+def train_a2d_path(smi: str, out_dir: str) -> dict:
+    """cli/main.run with configs/a2d_sentences.yaml (Video-Swin-T, roberta-base
+    frozen, bf16, batch 2 of 8-frame 320 x 576 windows, 4 loader threads) on
+    synthetic centre-frame-annotated clips: `train` for one epoch of 4 steps
+    with the per-epoch A2D evaluator over 4 synthetic val clips,
+    `resume_train` from its checkpoint for a second epoch, then `test` on a
+    reference .pth.tar of the epoch-2 weights, whose metrics must equal the
+    epoch's logged ones exactly."""
+    from neurips2023_soc_torch.cli import main as cli_main
+    from neurips2023_soc_torch.training.checkpoint import save_reference_checkpoint
+
+    cfg = load_config(ROOT / "configs" / "a2d_sentences.yaml",
+                      overrides={"output_dir": out_dir, "epochs": 1})
+    h, w, T, bs = cfg.train_short_size, cfg.train_max_size, cfg.window_size, cfg.batch_size
+    if (cfg.backbone, h, w, T, bs, cfg.num_workers, cfg.compute_dtype,
+            cfg.freeze_text_encoder) != ("video-swin-t", 320, 576, 8, 2, 4, "bfloat16", True):
+        raise RuntimeError(f"[train-a2d] configs/a2d_sentences.yaml changed: {cfg}")
+    train = SyntheticRVOSDataset(num_samples=A2D_TRAIN_SAMPLES, num_frames=T, frame_size=(h, w),
+                                 seed=0, center_frame_only=True)
+    val = SyntheticRVOSDataset(num_samples=A2D_VAL_SAMPLES, num_frames=T, frame_size=(h, w),
+                               seed=1, center_frame_only=True)
+    init = build_model(cfg, device="cpu", seed=int(cfg.seed)).state_dict()
+    steps = A2D_TRAIN_SAMPLES // bs
+    forwards = -(-A2D_VAL_SAMPLES // int(cfg.eval_batch_size))
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, _ = cli_main.run(cfg, "train", train_dataset=train, val_dataset=val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = expect_counts("train-a2d", steps, forwards)
+    runs = [counts]
+    check_history("train-a2d", first.history, steps)
+    epoch1 = {k: v.detach().clone() for k, v in first.model.state_dict().items()}
+    moved = check_moved("train-a2d", init, epoch1)
+    del init
+    log(f"[train-a2d] train: {steps} steps of {bs} x {T} x {h} x {w} (valid_indices "
+        f"{next(iter(first.train_batches(0)))['valid_indices'].tolist()}) and the evaluator "
+        f"over {A2D_VAL_SAMPLES} clips in {wall:.2f} s; losses "
+        f"{[round(x['loss'], 4) for x in first.history]}; counts {counts}; moved {moved}")
+    del first
+
+    reset_counters()
+    resumed, _ = cli_main.run(cfg.replace(epochs=2), "resume_train", train_dataset=train,
+                              val_dataset=val)
+    counts = expect_counts("train-a2d resume", steps, forwards)
+    runs.append(counts)
+    check_history("train-a2d resume", resumed.history, steps)
+    check_moved("train-a2d resume", epoch1, resumed.model.state_dict())
+    del epoch1
+    logged = read_log(out_dir)
+    if [rec["epoch"] for rec in logged] != [0, 1] or resumed.epoch != 1:
+        raise RuntimeError(f"[train-a2d] resume: epochs {[r['epoch'] for r in logged]}")
+    evals = {k: v for k, v in logged[-1].items() if k.startswith("eval_")}
+    check_ranged("train-a2d", evals, [k for k in evals if k[5:].startswith(("mAP", "P@"))])
+    check_best("train-a2d", resumed, "mAP 0.5:0.95", out_dir)
+
+    pth = str(Path(out_dir) / "epoch_1.pth.tar")
+    save_reference_checkpoint(resumed.model, pth, epoch=1, total_epochs=2,
+                              best_map=resumed.best_map)
+    reset_counters()
+    _, metrics = cli_main.run(cfg.replace(epochs=2, checkpoint_path=pth), "test",
+                              train_dataset=train, val_dataset=val)
+    test_counts = expect_counts("train-a2d test", 0, forwards)
+    runs.append(test_counts)
+    if {f"eval_{k}": v for k, v in metrics.items()} != evals:
+        raise RuntimeError(f"[train-a2d] test on the .pth.tar: {metrics}; epoch 2 logged {evals}")
+    log(f"[train-a2d] resume_train: epoch 2 of {steps} steps, counts {counts}; test on the "
+        f"reference .pth.tar of the epoch-2 weights (strict): metrics equal the logged epoch's, "
+        f"counts {test_counts}")
+    log("[train-a2d] epoch 2 metrics (random init): " + ", ".join(
+        f"{k[5:]} {v:.4f}" for k, v in evals.items()))
+    out = log_training_numbers("train-a2d", smi, resumed, bs, peak, True, A2D_VAL_SAMPLES)
+    return dict(out, k1=sum(c["launches"] for c in runs), k2=sum(c["bwd_launches"] for c in runs))
+
+
+def pretrain_path(smi: str, out_dir: str) -> dict:
+    """cli/main_pretrain.run with configs/refcoco_pretrain.yaml (Video-Swin-T,
+    bf16, batch 8 of single 360 x 640 frames) over 16 synthetic frames (2
+    steps) with build_pretrain_evaluator over one synthetic val split of 4."""
+    from neurips2023_soc_torch.cli import main_pretrain
+
+    cfg = load_config(ROOT / "configs" / "refcoco_pretrain.yaml",
+                      overrides={"output_dir": out_dir, "epochs": 1})
+    h, w, bs = cfg.train_short_size, cfg.train_max_size, cfg.batch_size
+    if (cfg.backbone, h, w, bs, cfg.compute_dtype, cfg.dataset_name) != (
+            "video-swin-t", HEIGHT, WIDTH, 8, "bfloat16", "coco_refer"):
+        raise RuntimeError(f"[pretrain] configs/refcoco_pretrain.yaml changed: {cfg}")
+    train = SyntheticRVOSDataset(num_samples=PRETRAIN_SAMPLES, num_frames=1, frame_size=(h, w),
+                                 seed=2)
+    val_sets = [("refcoco", SyntheticRefCOCOVal(PRETRAIN_VAL_SAMPLES, (h, w), seed=3))]
+    init = build_model(cfg, device="cpu", seed=int(cfg.seed)).state_dict()
+    steps = PRETRAIN_SAMPLES // bs
+    forwards = -(-PRETRAIN_VAL_SAMPLES // int(cfg.eval_batch_size))
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, _ = main_pretrain.run(cfg, "train", train_dataset=train, val_sets=val_sets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = expect_counts("pretrain", steps, forwards)
+    check_history("pretrain", trainer.history, steps)
+    moved = check_moved("pretrain", init, trainer.model.state_dict())
+    del init
+    pixels = next(iter(trainer.train_batches(0)))["pixels"]
+    if pixels.shape[:2] != (1, bs):
+        raise RuntimeError(f"[pretrain] batch pixels {pixels.shape}, expected T = 1")
+    evals = {k: v for k, v in read_log(out_dir)[-1].items() if k.startswith("eval_")}
+    check_ranged("pretrain", evals, [k for k in evals if k == "eval_mean_mask_mAP" or k.startswith(
+        ("eval_refcoco_mAP", "eval_refcoco_P@", "eval_refcoco_bbox P@", "eval_refcoco_recall@"))])
+    check_best("pretrain", trainer, "mean_mask_mAP", out_dir)
+    log(f"[pretrain] {steps} steps of {bs} x 1 x {h} x {w} and the evaluator over "
+        f"{PRETRAIN_VAL_SAMPLES} frames in {wall:.2f} s; losses "
+        f"{[round(x['loss'], 4) for x in trainer.history]}; counts {counts}; moved {moved}")
+    log("[pretrain] metrics (random init): " + ", ".join(
+        f"{k[5:]} {v:.4f}" for k, v in evals.items()))
+    out = log_training_numbers("pretrain", smi, trainer, bs, peak, False, PRETRAIN_VAL_SAMPLES)
+    return dict(out, k1=counts["launches"], k2=counts["bwd_launches"])
 
 
 # ---------------------------------------------------------------- DAVIS and A2D eval
@@ -1391,18 +1701,19 @@ def a2d_eval_path(smi: str) -> dict:
     return dict(wall=wall, fwd_ms=fwd_ms, k1=got["k1"])
 
 
-def small_reference(attn_impl: str) -> None:
+def small_reference(attn_impl: str, T: int = 4) -> None:
     """A small float32 SOC on the card against the same weights on the CPU
     (plain versions: window_attention_torch for xla, window_attention_ref
-    for pallas)."""
+    for pallas) on T frames (T = 1: the pretraining shape, with the temporal
+    patch pad and windows clamped to one frame)."""
     kw = dict(backbone_name="video-swin-t", d_model=64, num_queries=5,
               dim_feedforward=128, enc_layers=1, dec_layers=2, voc_enc_layers=1,
               voc_dec_layers=1, text_encoder_type="roberta-tiny", swin_attn_impl=attn_impl)
     cpu = init_weights(SOC(**kw), torch.Generator().manual_seed(1)).eval()
     gpu = init_weights(SOC(**kw), torch.Generator().manual_seed(1)).cuda().eval()
     rng = np.random.RandomState(1)
-    px = torch.from_numpy(rng.randn(4, 2, 48, 64, 3).astype(np.float32))
-    pad = torch.zeros(4, 2, 48, 64, dtype=torch.bool)
+    px = torch.from_numpy(rng.randn(T, 2, 48, 64, 3).astype(np.float32))
+    pad = torch.zeros(T, 2, 48, 64, dtype=torch.bool)
     pad[:, 1, 40:] = True
     ids = torch.from_numpy(rng.randint(3, 1000, (2, 8)).astype(np.int32))
     msk = torch.ones(2, 8, dtype=torch.int32)
@@ -1415,12 +1726,12 @@ def small_reference(attn_impl: str) -> None:
     seen = (window_attention.launches, window_attention.plain_calls,
             window_attention_torch.calls)
     if seen != expected:
-        raise RuntimeError(f"small SOC {attn_impl}: window attention (kernel, ref, torch) "
+        raise RuntimeError(f"small SOC {attn_impl} T={T}: window attention (kernel, ref, torch) "
                            f"calls {seen}, expected {expected}")
     for k in ("pred_masks", "pred_cls", "pred_boxes", "pred_logit"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3,
-                                   msg=lambda m: f"small SOC {attn_impl} cuda vs cpu, {k}: {m}")
-    log(f"[small] SOC video-swin-t d_model 64 f32, swin_attn_impl {attn_impl}: card == CPU "
+                                   msg=lambda m: f"small SOC {attn_impl} T={T} cuda vs cpu, {k}: {m}")
+    log(f"[small] SOC video-swin-t d_model 64 f32, T = {T}, swin_attn_impl {attn_impl}: card == CPU "
         f"within 1e-3 (window attention kernel / ref / torch calls {seen})")
 
 
@@ -1439,8 +1750,14 @@ def main(argv) -> int:
     if argv == ["--msda-times"]:
         msda_times()
         return 0
+    if argv == ["--train-times"]:
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
+            train_path(smi, out_dir)
+        return 0
     if argv:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --msda-times)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times or --train-times)",
+              file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -1465,9 +1782,17 @@ def main(argv) -> int:
         f"{e2e_k3['differ']:.6f} of the pixels")
     with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
         train = train_path(smi, out_dir)
-    k2["launches"] = train["bwd_launches"]
+    with tempfile.TemporaryDirectory(prefix="soc_train_a2d_") as out_dir:
+        a2d = train_a2d_path(smi, out_dir)
+    with tempfile.TemporaryDirectory(prefix="soc_pretrain_") as out_dir:
+        pretrain = pretrain_path(smi, out_dir)
+    # the launches of the paths that run each kernel: K1 in inference and in the
+    # new training entry points, K2 in every training path
+    k1["launches"] += a2d["k1"] + pretrain["k1"]
+    k2["launches"] = train["bwd_launches"] + a2d["k2"] + pretrain["k2"]
     small_reference("xla")
     small_reference("pallas")
+    small_reference("xla", T=1)
     davis_path(smi)
     a2d_eval_path(smi)
 

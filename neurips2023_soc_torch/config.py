@@ -79,15 +79,38 @@ def load_config(path: str | Path,
     return Config(data)
 
 
-def add_config_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The config flags of the port's inference CLI, named as in the JAX
-    package (reference main.py:61-97); each given flag overrides the config
-    key of its name. The training and pretrained-weight flags come with the
-    CLIs that read them, so an unknown flag is refused, not ignored."""
+def add_config_args(parser: argparse.ArgumentParser,
+                    training: bool = False) -> argparse.ArgumentParser:
+    """The config flags of the port's CLIs, named as in the JAX package
+    (reference main.py:61-97); each given flag overrides the config key of
+    its name. The inference CLIs take `-c`, `-b`, `-ckpt` and `--output_dir`
+    only, so a training or pretrained-weight flag they would not read is
+    refused, not ignored; `training=True` adds the training CLIs' flags, the
+    JAX package's whole set. `-bpp` is stored and read by nothing, as in the
+    JAX package; `--num_devices` is recorded."""
     parser.add_argument("--config_path", "-c", required=True)
+    if training:
+        parser.add_argument("--running_mode", "-rm", default="train",
+                            choices=["train", "test", "resume_train", "pred", "infer"])
+        parser.add_argument("--epochs", type=int, default=None)
+        parser.add_argument("--batch_size", "-bs", type=int, default=None)
+        parser.add_argument("--lr", type=float, default=None)
+        parser.add_argument("--lr_drop", type=int, nargs="+", default=None)
+        parser.add_argument("--window_size", "-ws", type=int, default=None)
+        parser.add_argument("--pretrained_weights", "-pw", default=None)
     parser.add_argument("--backbone", "-b", default=None)
+    if training:
+        parser.add_argument("--backbone_pretrained_path", "-bpp", default=None)
     parser.add_argument("--checkpoint_path", "-ckpt", default=None)
     parser.add_argument("--output_dir", default=None)
+    if training:
+        parser.add_argument("--seed", type=int, default=None)
+        parser.add_argument("--num_devices", type=int, default=None)
+        parser.add_argument("--version", default=None)
+        parser.add_argument(
+            "--grad_accum_steps", type=int, default=None,
+            help="micro-batches averaged per optimizer update (effective batch = "
+                 "batch_size * grad_accum_steps)")
     return parser
 
 

@@ -333,3 +333,51 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.
     sd = {k: torch.tensor(v) for k, v in state_dict_from_jax(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def kinetics_swin_to_backbone(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A Kinetics-400 Video-Swin torch checkpoint as SOC backbone keys
+    (reference video_swin_transformer.py:646-670; the port's copy of the JAX
+    package's converter): the 'backbone.' prefix stripped, the patch embed's
+    temporal kernel summed (2, 4, 4) -> (1, 4, 4), and each stage's
+    downsample moved out of its BasicLayer (layers.{s}.downsample ->
+    downsamples.{s}). The result loads with `load_state_dict(strict=False)`:
+    the port's modules carry the reference's key names."""
+    out = {}
+    for k, v in state_dict.items():
+        if not k.startswith("backbone."):
+            continue
+        k = k[len("backbone."):]
+        if "relative_position_index" in k or "attn_mask" in k:
+            continue
+        if k == "patch_embed.proj.weight":
+            v = np.asarray(v).sum(axis=2, keepdims=True)
+        m = re.match(r"layers\.(\d+)\.downsample\.(.*)", k)
+        if m:
+            k = f"downsamples.{m.group(1)}.{m.group(2)}"
+        out["backbone.0.body." + k] = np.asarray(v)
+    return out
+
+
+def swin2d_to_backbone(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """An ImageNet 2D-Swin torch checkpoint (the official layout, e.g. the
+    'model' dict of swin_{tiny,small,base,large}_patch4_window7_224.pth) as
+    backbone keys of the swin-* 2D configs: a singleton temporal axis in the
+    patch embed, (C, 3, 4, 4) -> (C, 3, 1, 4, 4) (the 2D bias table already
+    matches the (1, 7, 7)-window table), the classifier head and final norm
+    dropped, and the downsamples moved as in kinetics_swin_to_backbone."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("backbone."):
+            k = k[len("backbone."):]
+        if ("relative_position_index" in k or "attn_mask" in k or k.startswith("head.")
+                or k in ("norm.weight", "norm.bias")):
+            continue
+        v = np.asarray(v)
+        if k == "patch_embed.proj.weight":
+            v = v[:, :, None]
+        m = re.match(r"layers\.(\d+)\.downsample\.(.*)", k)
+        if m:
+            k = f"downsamples.{m.group(1)}.{m.group(2)}"
+        out["backbone.0.body." + k] = v
+    return out

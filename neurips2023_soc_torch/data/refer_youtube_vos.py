@@ -15,7 +15,6 @@ from os import path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from PIL import Image
 
 from .collate import frames_to_uint8, normalize_frames
 from .transforms import VideoTransforms, stable_rng
@@ -126,6 +125,8 @@ class ReferYouTubeVOSDataset:
         return samples
 
     def _train_video_samples(self, vid_id: str, vid_data: Dict) -> List[Tuple]:
+        from PIL import Image
+
         frames = sorted(vid_data["frames"])
         W = self.window_size
         windows = [frames[i : i + W] for i in range(0, len(frames), W)]
@@ -181,6 +182,8 @@ class ReferYouTubeVOSDataset:
         return YTVOS_CATEGORIES[cat]
 
     def __getitem__(self, idx: int) -> Dict:
+        from PIL import Image
+
         vid_id, frame_indices, exp = self.samples_list[idx]
         text = self.get_text(idx)  # train transforms may still alter it below
         frames = [

@@ -5,7 +5,7 @@ helper is a no-op (gather_objects and broadcast_object are the identity).
 from __future__ import annotations
 
 import os
-from typing import Any, List
+from typing import Any, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,6 +49,14 @@ def initialize_distributed(config=None) -> bool:
                             world_size=int(world), rank=int(rank))
     print(f"torch.distributed initialized: rank {dist.get_rank()}/{dist.get_world_size()}")
     return True
+
+
+def process_index_and_count() -> Tuple[int, int]:
+    """(rank, world size) of the running process group; (0, 1) in a single
+    process."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def is_main_process() -> bool:

@@ -1,4 +1,5 @@
-from .checkpoint import CheckpointManager, load_torch_checkpoint, save_reference_checkpoint
+from .checkpoint import (CheckpointManager, load_params_from_path, load_pretrained,
+                         load_torch_checkpoint, save_reference_checkpoint)
 from .optim import Optimizer, build_optimizer, update_milestones_from_microsteps
 from .train_step import TrainState, make_train_step
 from .trainer import Trainer
@@ -9,6 +10,8 @@ __all__ = [
     "TrainState",
     "Trainer",
     "build_optimizer",
+    "load_params_from_path",
+    "load_pretrained",
     "load_torch_checkpoint",
     "make_train_step",
     "save_reference_checkpoint",

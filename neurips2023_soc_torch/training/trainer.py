@@ -6,9 +6,11 @@ Behaviour kept from the reference trainer: 3 lr groups with MultiStepLR
 abort on a non-finite loss, an evaluation hook every epoch (its metrics go
 into `log.txt` as `eval_<metric>`), the best checkpoint by mAP for A2D (by the
 mean mask mAP when pretraining with val sets, else by the lowest train loss),
-at most 5 epoch checkpoints (10 when pretraining) plus the best, resume, and
-a JSON-lines `log.txt` per epoch. The loss is read on the host every step
-(the abort check), as in JAX.
+at most 5 epoch checkpoints (10 when pretraining) plus the best, resume, the
+`pretrained_weights` warm start, strict weight loading for `-rm test` /
+`pred`, a torch.profiler trace of steps 1..`profile_steps` of the first
+epoch, and a JSON-lines `log.txt` per epoch. The loss is read on the host
+every step (the abort check), as in JAX.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ import torch
 from ..device import resolve_device
 from ..losses import build_criterion_config
 from ..models import build_model
-from ..utils.logging import MetricLogger, SmoothedValue
+from ..utils.logging import MetricLogger, SmoothedValue, profile_trace
 from ..utils.prefetch import prefetch
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, load_params_from_path, load_pretrained
 from .optim import build_optimizer, update_milestones_from_microsteps
 from .train_step import TrainState, make_train_step
 
@@ -66,7 +68,14 @@ class Trainer:
         self._train_step = None
 
     def init_state(self) -> TrainState:
+        """The optimizer and train step, after the `pretrained_weights` warm
+        start (JAX trainer.py:125-131) when the config names one."""
         cfg = self.config
+        if cfg.get("pretrained_weights"):
+            report = load_pretrained(self.model, cfg.pretrained_weights,
+                                     drop_class_embed=bool(cfg.get("drop_class_embed", False)))
+            print(f"loaded pretrained weights: {len(report['missing'])} missing, "
+                  f"{len(report['unused'])} unused")
         accum = int(cfg.get("grad_accum_steps", 1) or 1)
         optimizer = build_optimizer(
             self.model, lr=float(cfg.lr), lr_backbone=float(cfg.lr_backbone),
@@ -82,12 +91,16 @@ class Trainer:
         return self._state
 
     def train(self) -> None:
+        """Setting config.profile_steps = N wraps steps 1..N of the first
+        epoch in a torch.profiler trace written under output_dir/profile."""
         print("Training started...")
         if self._state is None:
             self.init_state()
         self.history = []
         seed = int(self.config.seed) + 1
+        profile_steps = int(self.config.get("profile_steps", 0) or 0)
         for self.epoch in range(self.epoch, self.total_epochs):
+            prof = None
             t_epoch = time.time()
             epoch_loss, n = 0.0, 0
             mlog = MetricLogger()
@@ -96,11 +109,17 @@ class Trainer:
             end = time.perf_counter()
             for i, batch in enumerate(prefetch(self.train_batches(self.epoch))):
                 data_time.update(time.perf_counter() - end)
+                if profile_steps and self.epoch == 0 and i == 1:
+                    prof = profile_trace(str(self.output_dir / "profile"))
+                    prof.__enter__()
                 step_seed = seed * 1_000_003 + self._state.step
                 self._state, metrics = self._train_step(self._state, batch, step_seed)
                 loss = float(metrics["loss"])  # host read: the abort check
                 if not math.isfinite(loss):
                     raise FloatingPointError(f"Loss is {loss}, stopping training")
+                if prof is not None and i == profile_steps:
+                    prof.__exit__(None, None, None)
+                    prof = None
                 epoch_loss += loss
                 n += 1
                 terms = {k: v for k, v in metrics.items() if k != "loss"}
@@ -115,6 +134,8 @@ class Trainer:
                     print(f"Epoch: [{self.epoch}] [{i}/{self.steps_per_epoch}] eta: {eta}s "
                           f"{mlog} time: {iter_time} data: {data_time}", flush=True)
                 end = time.perf_counter()
+            if prof is not None:  # an epoch shorter than profile_steps
+                prof.__exit__(None, None, None)
 
             log_stats = {
                 "epoch": self.epoch,
@@ -162,13 +183,43 @@ class Trainer:
         extra["best_loss"] = float(self.best_loss)
         return self.ckpt.save(self.epoch, state, is_best, extra=extra)
 
+    def load_weights(self, path, strict: bool = True, _loaded_ckpt=None) -> None:
+        """Model weights from an explicit checkpoint path (a reference
+        `.pth.tar`, an `epoch_NNNN` directory or a checkpoints root) for
+        `-rm test` / `pred` (reference main.py:28-43 loads
+        config.checkpoint_path with load_state_dict(strict=True)); the
+        optimizer is untouched. `strict` raises on a missing or an unexpected
+        key, before the model changes; strict=False loads what matches and
+        prints the counts, as the reference's inference CLIs do."""
+        report = load_params_from_path(self.model, path, loaded_ckpt=_loaded_ckpt,
+                                       strict=strict)
+        if report["missing"] or report["unused"]:
+            print(f"loaded {path}: {len(report['missing'])} missing, "
+                  f"{len(report['unused'])} unused keys")
+
     def load_checkpoint(self, epoch: Optional[int] = None, path=None) -> None:
-        """Resume model, optimizer, step and best tracking from an epoch
-        checkpoint (the latest under output_dir by default; `path` names an
+        """Resume from an epoch checkpoint: model, optimizer, step and best
+        tracking (the latest under output_dir by default; `path` names an
         `epoch_NNNN` directory or a checkpoints root). Training resumes at
-        the next epoch."""
+        the next epoch. A reference `.pth.tar` as `path` gives the weights
+        and the epoch, total epochs (when the config sets none) and best
+        values it carries; its optimizer state is not read, so the optimizer
+        and schedule restart, as in JAX."""
         if self._state is None:
             self.init_state()
+        if path is not None and str(path).endswith((".pth", ".pth.tar", ".pt")):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            self.load_weights(path, _loaded_ckpt=ckpt)
+            self.epoch = int(ckpt.get("epoch", -1)) + 1
+            if "total_epochs" in ckpt and self.config.get("epochs") is None:
+                self.total_epochs = int(ckpt["total_epochs"])
+            if "best_mAP" in ckpt:
+                self.best_map = float(ckpt["best_mAP"])
+            if "best_loss" in ckpt:
+                self.best_loss = float(ckpt["best_loss"])
+            print("resumed weights from a reference checkpoint; the optimizer and "
+                  "schedule restart")
+            return
         source = self.ckpt
         if path is not None:
             p = Path(path)

@@ -1,10 +1,14 @@
-"""Training telemetry (torch-free copy of the metric helpers of
-neurips2023_soc_tpu/utils/logging.py): window-smoothed values and a logger
-that formats them."""
+"""Training telemetry (copy of the metric helpers of
+neurips2023_soc_tpu/utils/logging.py): window-smoothed values, a logger that
+formats them, a step timer, and a torch.profiler trace of a span of steps
+(torch is imported only by the trace)."""
 from __future__ import annotations
 
+import contextlib
+import time
 from collections import defaultdict, deque
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -62,3 +66,32 @@ class MetricLogger:
 
     def __str__(self):
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str], enabled: bool = True):
+    """A torch.profiler trace of the enclosed code (host ops, and the card's
+    kernels when CUDA is available) written as a Chrome trace under
+    `log_dir`; a no-op when disabled or without a directory. A profiler that
+    fails raises: no trace is ever missing in silence."""
+    if not enabled or not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(log_dir) / f"trace_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def step_timer(metrics: MetricLogger, name: str = "step_time"):
+    """Host seconds of the enclosed code into `metrics` under `name`."""
+    t0 = time.perf_counter()
+    yield
+    metrics.update(**{name: time.perf_counter() - t0})

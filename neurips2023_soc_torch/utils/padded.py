@@ -19,6 +19,16 @@ def eval_size_buckets(short_size: int, max_size: int) -> Tuple[Tuple[int, int], 
     return ((short_size, max_size), (max_size, short_size))
 
 
+def train_size_buckets(short_size: int, max_size: int) -> Tuple[Tuple[int, int], ...]:
+    """eval_size_buckets plus the (max, max) square: a batch that mixes
+    portrait and landscape samples pads to the per-dimension maximum over the
+    batch, as the reference's NestedTensor does (misc.py:143-160), and only
+    the square bucket holds that."""
+    if short_size == max_size:
+        return ((short_size, max_size),)
+    return ((short_size, max_size), (max_size, short_size), (max_size, max_size))
+
+
 def pick_size_bucket(h: int, w: int,
                      buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
     for bh, bw in buckets:

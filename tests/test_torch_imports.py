@@ -34,6 +34,8 @@ NEW_IN_SLICE_6 = ("evaluation", "evaluation.rle", "evaluation.coco_eval",
                   "evaluation.refexp_eval", "evaluation.davis", "models.postprocessing",
                   "data.davis", "data.prepare_davis", "data.coco_ref", "cli.infer_davis",
                   "cli.eval_davis")
+TRAINING_ENTRY_POINTS = ("cli.main", "cli.main_pretrain", "cli.main_joint", "data.sampler",
+                  "data.jhmdb_sentences")
 
 
 def test_fresh_import_loads_no_jax():
@@ -43,7 +45,7 @@ def test_fresh_import_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     loaded = out.stdout.split("PORT", 1)[1]
-    for name in NEW_IN_SLICE_3 + NEW_IN_SLICE_6:
+    for name in NEW_IN_SLICE_3 + NEW_IN_SLICE_6 + TRAINING_ENTRY_POINTS:
         assert f"'neurips2023_soc_torch.{name}'" in loaded, name
 
 
@@ -53,6 +55,15 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_file_readers_are_imported_where_they_read():
+    """cv2, h5py, pandas and PIL are not on every machine the port runs on:
+    the data and CLI modules import them inside the functions that read
+    files, so every module imports without them."""
+    pattern = re.compile(r"^(import|from)\s+(cv2|h5py|pandas|PIL)\b", re.M)
+    files = sorted((ROOT / "neurips2023_soc_torch").rglob("*.py"))
+    assert [str(f) for f in files if pattern.search(f.read_text())] == []
 
 
 def test_torch_gets_the_workers_share_of_the_cores(monkeypatch):
