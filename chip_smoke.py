@@ -121,11 +121,51 @@ prints no result):
                a2d_device_step on the card against the CPU on one forward's
                outputs (scores within 1e-6, masks equal on at least 99.99 % of
                the pixels).
+  9. ddp     — several ranks (torch.multiprocessing spawn), through the port's
+               initialize_distributed (config keys num_processes, process_id,
+               coordinator_address, dist_backend) and Trainer: one rank per
+               card on NCCL when there are several cards; on one card one rank
+               on NCCL (a group of one: DDP and ZeRO-1 still run) and two ranks
+               sharing the card on gloo, asked for by name. The small SOC of
+               configs/tiny_synthetic.yaml in f32 (dropout and drop path off)
+               for 3 steps of a global batch of 4 (one step an epoch),
+               `optimizer_sharding` replicated and zero1: the ranks' parameters
+               bit-equal after every step (per-tensor digests gathered in the
+               evaluation hook), rank 0's parameters after steps 2 and 3 within
+               1e-4 of each tensor's scale of the same Trainer in this process
+               on the same batches (the first step's loss and gradient norm
+               within 1e-5; later losses are printed beside one process's),
+               every rank's ZeRO-1
+               optimizer state at most
+               0.6 of the replicated total (world > 1), a resume of step 2's
+               checkpoint reproducing step 3 within 1e-4 of scale, and exactly
+               3 K1 and 3 K2 launches per step on every rank, no plain MSDA.
+ 10. joint   — cli/main_joint.run with configs/joint.yaml (Video-Swin-T,
+               roberta-base frozen, bf16, 8 x 360 x 640 synthetic clips, a
+               global batch of 8 per update) on the last of those rank layouts
+               (two ranks sharing one card on gloo, or one rank per card): 2
+               clips per rank per micro-step and grad_accum_steps 8 / (2 x
+               ranks) (4 clips per rank do not fit twice on one card), 3
+               updates; exactly 6 K1 and 6 K2 launches
+               per micro-step on every rank, no plain MSDA, no K3; one step's 6
+               K1 and 6 K2 calls held against the plain versions on every
+               rank; update ms, samples/s and peak memory per rank.
+ 11. resnet  — SOC with `backbone: resnet50` at configs/refer_youtube_vos.yaml's
+               widths (d_model 256, 20 queries, 3+3 layers, roberta-base),
+               bf16: InferenceEngine over the 3 videos of 16 x 360 x 640 of
+               phase e2e (6 K1 per clip and no other kernel; the clip's 6 K1
+               calls held against the plain version; device frames/s, peak
+               memory), then 2 Trainer steps at 1 x 8 x 360 x 640 (6 K1 + 6 K2
+               per step): the 212 FrozenBN tensors bit-unchanged while the
+               convolutions move, their gradients non-zero and inside the
+               step's grad_norm (recomputed from the gradients the optimizer is
+               handed), one step's K1/K2 calls checked.
 Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
-path's shapes, and `--train-times` only runs phase train (a copy of this
+path's shapes, `--train-times` only runs phase train (a copy of this
 script in an older checkout runs that checkout's code: an A/B in one chip
-call). The second-to-last lines are the card's name/power limit and a
+call), and `--multi-rank` only runs phases ddp and joint (for a machine of
+several cards). The second-to-last lines are the card's name/power limit and a
 JSON object of the kernels; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -133,6 +173,8 @@ from __future__ import annotations
 import ctypes
 import importlib
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1701,6 +1743,476 @@ def a2d_eval_path(smi: str) -> dict:
     return dict(wall=wall, fwd_ms=fwd_ms, k1=got["k1"])
 
 
+# ---------------------------------------------------------------- several ranks
+DDP_STEPS = 3  # epochs of one global batch each; the resume repeats step 3
+MSDA_TINY = 3  # configs/tiny_synthetic.yaml: 1 encoder + 2 decoder layers
+JOINT_BATCH, JOINT_UPDATES = 8, 3  # configs/joint.yaml's global batch, updates run
+
+
+def joint_split(world: int) -> tuple:
+    """(clips per rank per micro-step, grad_accum_steps) for JOINT_BATCH
+    clips per update: at most 2 clips per rank (4 clips of a rank take about
+    40 GiB, and two ranks share a card on a one-card machine)."""
+    clips = min(2, JOINT_BATCH // world)
+    return clips, JOINT_BATCH // (world * clips)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_runs() -> list:
+    """(backend, world, how the ranks sit) of the multi-rank phases: one rank
+    per card on NCCL when there are several cards; on one card, one rank on
+    NCCL and two ranks sharing it on gloo, asked for by name (NCCL refuses
+    two ranks on one card)."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        return [("nccl", cards, "one rank per card")]
+    return [("nccl", 1, "one rank on the card"), ("gloo", 2, "two ranks sharing the card")]
+
+
+def rank_keys(rank: int, world: int, backend: str, port: int) -> dict:
+    """In a spawned rank: LOCAL_RANK (the port picks the card by it; ranks
+    beyond the cards share them on gloo), no TF32, and the config keys of a
+    multi-process run that initialize_distributed reads."""
+    import os
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    return dict(num_processes=world, process_id=rank, dist_backend=backend,
+                coordinator_address=f"localhost:{port}")
+
+
+def start_group(rank: int, world: int, backend: str, port: int) -> None:
+    """The port's initialize_distributed in a spawned rank. A world of 1,
+    for which it starts no group, gets its group of one here, so DDP and
+    ZeRO-1 still run on the backend."""
+    import torch.distributed as dist
+
+    from neurips2023_soc_torch.config import Config
+    from neurips2023_soc_torch.parallel import initialize_distributed
+
+    keys = rank_keys(rank, world, backend, port)
+    if world == 1:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0)
+    elif not initialize_distributed(Config(keys)):
+        raise RuntimeError("initialize_distributed started no group")
+
+
+def spawn_ranks(fn, world: int, *args) -> None:
+    import torch.multiprocessing as mp
+
+    mp.spawn(fn, args=(world,) + args, nprocs=world, join=True)
+
+
+def ddp_config(out_dir, sharding: str):
+    """configs/tiny_synthetic.yaml (video-swin-t, d_model 64, roberta-tiny,
+    f32, 4 frames of 96 x 160) at a global batch that every run of
+    rank_runs() divides, for DDP_STEPS epochs of one step, seed 3, no loader
+    threads."""
+    batch = math.lcm(4, *(world for _, world, _ in rank_runs()))
+    return load_config(ROOT / "configs" / "tiny_synthetic.yaml", overrides={
+        "output_dir": str(out_dir), "optimizer_sharding": sharding, "epochs": DDP_STEPS,
+        "seed": 3, "num_workers": 0, "batch_size": batch})
+
+
+def ddp_trainer(cfg):
+    """The port's Trainer over one global batch of synthetic clips, sharded
+    over the running group by make_batch_iterator, with dropout and drop
+    path off (the ranks draw other masks than one process does)."""
+    from neurips2023_soc_torch.cli.main import make_batch_iterator
+    from neurips2023_soc_torch.models.common import Dropout
+
+    tok = build_tokenizer(cfg.text_encoder_type, cfg.text_bucket)
+    ds = SyntheticRVOSDataset(num_samples=cfg.batch_size, num_frames=cfg.window_size,
+                              frame_size=(cfg.train_short_size, cfg.train_max_size), seed=0)
+    trainer = Trainer(cfg, make_batch_iterator(ds, cfg, tok), steps_per_epoch=1)
+    for m in trainer.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+        if isinstance(getattr(m, "drop_path", None), float):
+            m.drop_path = 0.0
+    return trainer
+
+
+def weights_of(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def close_to(tag: str, got: dict, want: dict) -> float:
+    """Raises unless every tensor is within 1e-4 of its scale
+    (max(1, max |want|)); returns the largest error / scale."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(1.0, w.abs().max().item())
+        err = (got[k].float() - w.float()).abs().max().item() / scale
+        if err > 1e-4:
+            raise RuntimeError(f"[{tag}] {k}: error {err:.3g} of its scale")
+        worst = max(worst, err)
+    return worst
+
+
+def ddp_rank_main(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """One rank of phase ddp: for `replicated` and `zero1`, DDP_STEPS steps
+    of the small SOC through Trainer.train with the parameters' digests
+    gathered after every step (the evaluation hook) and required equal on
+    every rank, exact K1/K2 counts and no plain MSDA, then a resume of the
+    checkpoint of step DDP_STEPS - 1 whose step must reproduce the last one.
+    Rank 0 writes what the parent compares to out_dir/ddp_<backend><world>.pt."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from neurips2023_soc_torch.parallel import gather_objects, opt_state_bytes_per_rank
+
+    start_group(rank, world, backend, port)
+    out, res = Path(out_dir), {}
+
+    def same_on_every_rank(model, tag):
+        digests = gather_objects({k: hashlib.sha1(v.detach().cpu().numpy().tobytes()).hexdigest()
+                                  for k, v in model.state_dict().items()})
+        bad = [k for k in digests[0] if any(d[k] != digests[0][k] for d in digests)]
+        if bad:
+            raise RuntimeError(f"[ddp] {tag}: parameters differ between ranks at {bad[:4]}")
+
+    try:
+        for sharding in ("replicated", "zero1"):
+            cfg = ddp_config(out / f"{backend}{world}_{sharding}", sharding)
+            trainer = ddp_trainer(cfg)
+            trainer.evaluate_fn = lambda model, epoch: same_on_every_rank(
+                model, f"{sharding} step {epoch + 1}") or {}
+            reset_counters()
+            trainer.train()
+            counts = [msda_counts()]
+            last = weights_of(trainer.model)
+            state_bytes = opt_state_bytes_per_rank(trainer._state.optimizer)
+            full_bytes = sum(2 * p.numel() * 4 + 4 for p in trainer._state.optimizer.trainable)
+            resumed = ddp_trainer(cfg)
+            resumed.load_checkpoint(epoch=DDP_STEPS - 2)
+            reset_counters()
+            resumed.train()
+            counts.append(msda_counts())
+            same_on_every_rank(resumed.model, f"{sharding} resumed")
+            err = close_to(f"ddp {sharding} resume", weights_of(resumed.model), last)
+            for c, steps in zip(counts, (DDP_STEPS, 1)):
+                want = {"launches": MSDA_TINY * steps, "bwd_launches": MSDA_TINY * steps,
+                        "plain_calls": 0, "plain_bwd_calls": 0}
+                if c != want:
+                    raise RuntimeError(f"[ddp] rank {rank} {sharding}: MSDA counts {c}, "
+                                       f"expected {want}")
+            run_dir = Path(cfg.output_dir)
+            mid = None
+            if rank == 0:  # the checkpoints take a third of a GB each
+                mid = torch.load(run_dir / "checkpoints" / f"epoch_{DDP_STEPS - 2:04d}"
+                                 / "state.pt", map_location="cpu", weights_only=False)["model"]
+                shutil.rmtree(run_dir)
+            res[sharding] = dict(
+                mid=mid, last=last, resume_err=err, batch=cfg.batch_size,
+                losses=[h["loss"] for h in trainer.history],
+                grad_norm=trainer.history[0]["grad_norm"],
+                bytes=gather_objects(state_bytes), full_bytes=full_bytes,
+                counts=gather_objects(counts), sharded=trainer._state.optimizer.zero1,
+                ddp=type(trainer._state.model).__name__, backend=dist.get_backend(),
+                world=dist.get_world_size(),
+                step_ms=[round(h["step_time_s"] * 1e3, 2) for h in trainer.history])
+        if rank == 0:
+            torch.save(res, out / f"ddp_{backend}{world}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_path(smi: str, out_dir: str) -> dict:
+    """Phase ddp: the small SOC (configs/tiny_synthetic.yaml, f32) trained
+    for DDP_STEPS steps in each run of rank_runs(), replicated and ZeRO-1,
+    against the same Trainer in this process on the same global batches
+    (1e-4 of each tensor's scale, after step DDP_STEPS - 1 and after the
+    last); the ranks' parameters bit-equal after every step; under ZeRO-1 at
+    world > 1 each rank's optimizer state at most 0.6 of the replicated
+    total; the resume reproduces the last step; exact K1/K2 counts on every
+    rank. Returns the K1 and K2 launches of all ranks."""
+    torch.cuda.empty_cache()  # the ranks need the card's memory, not this process's cache
+    out = Path(out_dir)
+    ref = {}
+    for sharding in ("replicated", "zero1"):
+        trainer = ddp_trainer(ddp_config(out / f"single_{sharding}", sharding))
+        steps = []
+        trainer.evaluate_fn = lambda model, epoch: steps.append(weights_of(model)) or {}
+        trainer.train()
+        ref[sharding] = dict(steps=steps, losses=[h["loss"] for h in trainer.history],
+                             grad_norm=trainer.history[0]["grad_norm"])
+        shutil.rmtree(trainer.output_dir)
+    k1 = k2 = 0
+    for backend, world, how in rank_runs():
+        t0 = time.perf_counter()
+        spawn_ranks(ddp_rank_main, world, backend, free_port(), str(out))
+        wall = time.perf_counter() - t0
+        res = torch.load(out / f"ddp_{backend}{world}.pt", weights_only=False)
+        for sharding, r in res.items():
+            tag = f"ddp {backend} x{world} {sharding}"
+            if (r["backend"], r["world"], r["ddp"]) != (backend, world,
+                                                        "DistributedDataParallel") \
+                    or r["sharded"] != (sharding == "zero1"):
+                raise RuntimeError(f"[{tag}] ran on {r['backend']} x{r['world']}, {r['ddp']}, "
+                                   f"ZeRO-1 {r['sharded']}")
+            err_mid = close_to(tag, r["mid"], ref[sharding]["steps"][-2])
+            err_last = close_to(tag, r["last"], ref[sharding]["steps"][-1])
+            # step 1 runs the same parameters on the same batch: its loss, and its
+            # gradient norm (which a wrong scale of the ranks' mean would move, where the
+            # clip and AdamW's first steps hide it in the parameters), agree; later
+            # losses are of parameters already held above, through the matcher's
+            # discontinuous assignment (a near tie at random weights read 3e-4 apart)
+            np.testing.assert_allclose([r["losses"][0], r["grad_norm"]],
+                                       [ref[sharding]["losses"][0], ref[sharding]["grad_norm"]],
+                                       rtol=1e-5)
+            share = [b / r["full_bytes"] for b in r["bytes"]]
+            if sharding == "zero1" and world > 1 and max(share) > 0.6:
+                raise RuntimeError(f"[{tag}] optimizer state per rank {share} of the "
+                                   "replicated total")
+            k1 += sum(c["launches"] for rank in r["counts"] for c in rank)
+            k2 += sum(c["bwd_launches"] for rank in r["counts"] for c in rank)
+            log(f"[ddp] {smi}: {backend} x{world} ({how}), {sharding}: {DDP_STEPS} steps of a "
+                f"global batch of {r['batch']}, parameters bit-equal on every rank after each "
+                f"step; against one process: step {DDP_STEPS - 1} {err_mid:.3g}, step {DDP_STEPS} "
+                f"{err_last:.3g} of scale; losses {[round(x, 4) for x in r['losses']]} (one "
+                f"process {[round(x, 4) for x in ref[sharding]['losses']]}), step 1's gradient norm "
+                f"{r['grad_norm']:.6g} (one process {ref[sharding]['grad_norm']:.6g}); "
+                f"resume of step {DDP_STEPS - 1}'s checkpoint reproduces step {DDP_STEPS} "
+                f"within {r['resume_err']:.3g}; optimizer state per rank "
+                f"{', '.join(f'{s:.3f}' for s in share)} of the replicated "
+                f"{r['full_bytes'] / 2**20:.1f} MiB; MSDA counts per rank {r['counts']}; step "
+                f"ms (rank 0, host clock) {r['step_ms']}")
+        log(f"[ddp] {backend} x{world}: {wall:.1f} s for both runs, ranks' start included")
+    return dict(k1=k1, k2=k2)
+
+
+def joint_rank_main(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """One rank of phase joint: cli/main_joint.run with configs/joint.yaml on
+    synthetic 8 x 360 x 640 clips, split by joint_split(world) into a global
+    batch of JOINT_BATCH per update, for JOINT_UPDATES updates; then one
+    step's K1 and K2 calls held against the plain versions (every rank runs
+    it: the criterion's count is an all-reduce). Rank 0 writes the ranks'
+    numbers to out_dir/joint.json."""
+    import torch.distributed as dist
+
+    from neurips2023_soc_torch.cli import main_joint
+    from neurips2023_soc_torch.parallel import gather_objects
+
+    keys = rank_keys(rank, world, backend, port)  # main_joint.run starts the group
+    clips, accum = joint_split(world)
+    try:
+        cfg = load_config(ROOT / "configs" / "joint.yaml")
+        if (cfg.backbone, cfg.window_size, cfg.train_short_size, cfg.train_max_size,
+                cfg.compute_dtype, cfg.batch_size) != ("video-swin-t", 8, HEIGHT, WIDTH,
+                                                       "bfloat16", JOINT_BATCH):
+            raise RuntimeError(f"[joint] configs/joint.yaml changed: {cfg}")
+        cfg = cfg.replace(output_dir=out_dir, epochs=1, batch_size=world * clips,
+                          grad_accum_steps=accum, **keys)
+        T, h, w = cfg.window_size, cfg.train_short_size, cfg.train_max_size
+        micro = accum * JOINT_UPDATES
+        ds = SyntheticRVOSDataset(num_samples=world * clips * micro, num_frames=T,
+                                  frame_size=(h, w), seed=0)
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = main_joint.run(cfg, "train", coco_folder="", train_dataset=ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = dict(msda_counts(), k3=window_attention.launches)
+        check_history("joint", trainer.history, micro)
+        batch = device_batch(next(iter(trainer.train_batches(0))), trainer.device)
+        k1_ratios, k2_ratios = checked_step(trainer.model, batch, trainer.crit_cfg)
+        rows = gather_objects(dict(
+            rank=rank, counts=counts, peak=peak, wall=wall, k1=k1_ratios, k2=k2_ratios,
+            local_batch=int(batch["pixels"].shape[1]), updates=trainer._state.optimizer.count,
+            step_s=[h["step_time_s"] for h in trainer.history],
+            losses=[h["loss"] for h in trainer.history], backend=dist.get_backend(),
+            world=dist.get_world_size(), device=str(trainer.device)))
+        if rank == 0:
+            (Path(out_dir) / "joint.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def joint_path(smi: str, out_dir: str) -> dict:
+    """Phase joint: cli/main_joint.run at configs/joint.yaml (Video-Swin-T,
+    roberta-base frozen, bf16, 8 x 360 x 640 clips, a global batch of 8 per
+    update) on the last of rank_runs() (several cards, or two ranks sharing
+    one): exact K1/K2 counts per rank (6 per micro-step), no plain MSDA, no
+    K3; every loss finite; one step's K1/K2 calls within tolerance on every
+    rank. Prints the update ms (host clock, median of updates 2 to
+    JOINT_UPDATES), samples/s and the peak memory per rank."""
+    backend, world, how = rank_runs()[-1]
+    clips, accum = joint_split(world)
+    torch.cuda.empty_cache()
+    spawn_ranks(joint_rank_main, world, backend, free_port(), out_dir)
+    rows = json.loads((Path(out_dir) / "joint.json").read_text())
+    micro = accum * JOINT_UPDATES
+    want = {"launches": MSDA_PER_CLIP * micro, "bwd_launches": MSDA_PER_CLIP * micro,
+            "plain_calls": 0, "plain_bwd_calls": 0, "k3": 0}
+    for r in rows:
+        # checked_step's forward and backward ran after the counts were read
+        if r["counts"] != want or r["updates"] != JOINT_UPDATES or r["local_batch"] != clips:
+            raise RuntimeError(f"[joint] rank {r['rank']}: counts {r['counts']}, "
+                               f"{r['updates']} updates, local batch {r['local_batch']}; "
+                               f"expected {want}")
+        log_checked_step(f"joint rank {r['rank']}", r["k1"], r["k2"])
+    update_s = [sum(rows[0]["step_s"][i:i + accum]) for i in range(0, micro, accum)]
+    update_ms = statistics.median(update_s[1:]) * 1e3
+    log(f"[joint] {smi}: backend {rows[0]['backend']}, world {rows[0]['world']} ({how}; "
+        f"devices {[r['device'] for r in rows]}); {JOINT_UPDATES} updates of a global batch "
+        f"of {JOINT_BATCH} clips of 8 x {HEIGHT} x {WIDTH} ({clips} per rank per micro-step, "
+        f"grad_accum_steps {accum}); losses (rank mean) "
+        f"{[round(x, 4) for x in rows[0]['losses']]}")
+    log(f"[joint] {smi}: update {update_ms:.2f} ms (median of updates 2-{JOINT_UPDATES}, "
+        f"host clock, rank 0) = {JOINT_BATCH * 1e3 / update_ms:.3f} samples/s; updates "
+        f"{', '.join(f'{s * 1e3:.2f}' for s in update_s)} ms; peak memory per rank "
+        f"{', '.join(f'{r['peak']:.2f}' for r in rows)} GiB; run {rows[0]['wall']:.1f} s")
+    return dict(k1=sum(r["counts"]["launches"] for r in rows),
+                k2=sum(r["counts"]["bwd_launches"] for r in rows), update_ms=update_ms)
+
+
+RESNET_TRAIN_STEPS = 2
+
+
+def resnet_path(smi: str, out_dir: str) -> dict:
+    """Phase resnet: SOC with `backbone: resnet50` at
+    configs/refer_youtube_vos.yaml's widths (d_model 256, 20 queries, 3 + 3
+    layers, roberta-base), bf16, seeded random init. Inference: 3 clips of
+    16 x 360 x 640 through InferenceEngine, 6 K1 per clip and nothing else,
+    the clip's 6 K1 calls held against the plain version, device frames/s
+    and peak memory. Training: RESNET_TRAIN_STEPS steps at 1 x 8 x 360 x
+    640 through Trainer (6 K1 and 6 K2 per step), the 212 FrozenBN tensors
+    bit-unchanged while the convolutions move, their gradients non-zero and
+    inside the step's grad_norm, one step's K1/K2 calls checked."""
+    from neurips2023_soc_torch.training.optim import global_norm, param_label
+
+    cfg = load_config(ROOT / "configs" / "refer_youtube_vos.yaml", overrides={
+        "backbone": "resnet50", "compute_dtype": "bfloat16", "output_dir": out_dir, "epochs": 1})
+    dt = cfg.DeformTransformer
+    if (dt["d_model"], dt["num_queries"], dt["enc_layers"], dt["dec_layers"],
+            cfg.text_encoder_type, cfg.window_size) != (256, 20, 3, 3, "roberta-base", T_TRAIN):
+        raise RuntimeError(f"[resnet] configs/refer_youtube_vos.yaml changed: {dt}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    engine = InferenceEngine(model, text_encoder_type=cfg.text_encoder_type,
+                             text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),))
+    videos, texts = inference_inputs()
+    engine.infer_video(videos[0], texts[0])  # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    log(f"[resnet] built SOC resnet50 bf16 "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params) and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counters()
+    t0 = time.perf_counter()
+    results = list(engine.infer_videos([dict(frames=v, texts=[t])
+                                        for v, t in zip(videos, texts)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(msda_counts(), k3=window_attention.launches,
+               k3_plain=window_attention.plain_calls, xla_attn=window_attention_torch.calls)
+    want = dict(launches=MSDA_PER_CLIP * NUM_VIDEOS, bwd_launches=0, plain_calls=0,
+                plain_bwd_calls=0, k3=0, k3_plain=0, xla_attn=0)
+    if got != want:
+        raise RuntimeError(f"[resnet] inference counts {got}, expected {want}")
+    check_masks(results)
+    engine_fps = NUM_VIDEOS * T_CLIP / wall
+    timings = clip_timings(model, videos[0], texts[0], engine.tokenizer, "resnet")
+    _, k1_ratios = checked_kernels(lambda: engine.infer_video(videos[0], texts[0]))
+    if len(k1_ratios) != MSDA_PER_CLIP or max(k1_ratios) > 1.0:
+        raise RuntimeError(f"[resnet] K1 on the model's inputs: {k1_ratios}")
+    infer_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[resnet] {smi}: infer_videos {NUM_VIDEOS} videos x {T_CLIP} x {HEIGHT} x {WIDTH} in "
+        f"{wall:.3f} s = {engine_fps:.2f} frames/s (engine); device "
+        f"{timings['device_fps']:.2f} frames/s, backbone {timings['backbone_ms']:.2f} ms; "
+        f"peak {infer_peak:.2f} GiB; counts {got}; the clip's K1 calls, error / tolerance "
+        f"{', '.join(f'{r:.3f}' for r in k1_ratios)}")
+    del engine, model, results
+    torch.cuda.empty_cache()
+
+    tok = build_tokenizer(cfg.text_encoder_type, cfg.text_bucket)
+    ds = SyntheticRVOSDataset(num_samples=RESNET_TRAIN_STEPS, num_frames=T_TRAIN,
+                              frame_size=(HEIGHT, WIDTH), seed=0)
+
+    def batches(epoch):
+        return iterate_batches(ds, 1, tok, seed=epoch, size_buckets=((HEIGHT, WIDTH),))
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, batches, steps_per_epoch=RESNET_TRAIN_STEPS)
+    state = trainer.init_state()
+    model = trainer.model
+    named = dict(model.named_parameters())
+    bn = [n for n in named if n.startswith("backbone.") and param_label(n, True) == "frozen"]
+    if len(bn) != 4 * (1 + 3 * 16 + 4):
+        raise RuntimeError(f"[resnet] {len(bn)} FrozenBN tensors labelled frozen, expected 212")
+    before = weights_of(model)
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(msda_counts(), k3=window_attention.launches)
+    want = dict(launches=MSDA_PER_CLIP * RESNET_TRAIN_STEPS,
+                bwd_launches=MSDA_PER_CLIP * RESNET_TRAIN_STEPS, plain_calls=0,
+                plain_bwd_calls=0, k3=0)
+    if counts != want:
+        raise RuntimeError(f"[resnet] training counts {counts}, expected {want}")
+    check_history("resnet", trainer.history, RESNET_TRAIN_STEPS)
+    after = weights_of(model)
+    moved_bn = [n for n in bn if not torch.equal(after[n], before[n])]
+    moved_conv = [n for n in named if n.startswith("backbone.") and n not in bn
+                  and not torch.equal(after[n], before[n])]
+    if moved_bn or not moved_conv:
+        raise RuntimeError(f"[resnet] FrozenBN tensors changed: {moved_bn[:4]}; "
+                           f"{len(moved_conv)} backbone convolutions moved")
+
+    # one more step, with the gradients that its grad_norm read recorded as the
+    # optimizer is handed them: the norm is over every gradient, FrozenBN's included
+    batch = device_batch(next(iter(batches(1))), torch.device("cuda"))
+    seen = {}
+    apply = state.optimizer.apply_gradients
+
+    def recording_apply():
+        seen.update(all=global_norm(p.grad for p in named.values()).item(),
+                    bn=global_norm(named[n].grad for n in bn).item(),
+                    bn_zero=sum(int(not named[n].grad.any()) for n in bn))
+        return apply()
+
+    state.optimizer.apply_gradients = recording_apply
+    try:
+        _, metrics = trainer._train_step(state, batch, 12345)
+    finally:
+        del state.optimizer.apply_gradients
+    grad_norm = metrics["grad_norm"].item()
+    if grad_norm != seen["all"] or not seen["bn"] > 0:
+        raise RuntimeError(f"[resnet] grad_norm {grad_norm}; the norm over every gradient "
+                           f"{seen['all']}, over FrozenBN's {seen['bn']}")
+    if any(not torch.equal(named[n].detach().cpu(), before[n]) for n in bn):
+        raise RuntimeError("[resnet] a FrozenBN tensor changed in the checked step")
+    log_checked_step("resnet", *checked_step(model, batch, trainer.crit_cfg))
+    hist = trainer.history
+    step_ms = statistics.median(h["step_time_s"] for h in hist[1:]) * 1e3
+    log(f"[resnet] {smi}: {RESNET_TRAIN_STEPS} training steps of 1 x {T_TRAIN} x {HEIGHT} x "
+        f"{WIDTH} in {wall:.2f} s, step {step_ms:.2f} ms (step 2, host clock) = "
+        f"{1e3 / step_ms:.3f} samples/s; peak {peak:.2f} GiB; losses "
+        f"{[round(h['loss'], 4) for h in hist]}; counts {counts}; the 212 FrozenBN tensors "
+        f"bit-unchanged, {len(moved_conv)} backbone convolutions moved; one step's grad_norm "
+        f"{grad_norm:.4f} = the norm over every gradient, FrozenBN's {seen['bn']:.4f} "
+        f"({212 - seen['bn_zero']} of the 212 non-zero) included")
+    return dict(k1=counts["launches"] + got["launches"], k2=counts["bwd_launches"],
+                device_fps=timings["device_fps"], step_ms=step_ms)
+
+
 def small_reference(attn_impl: str, T: int = 4) -> None:
     """A small float32 SOC on the card against the same weights on the CPU
     (plain versions: window_attention_torch for xla, window_attention_ref
@@ -1755,9 +2267,16 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
             train_path(smi, out_dir)
         return 0
+    if argv == ["--multi-rank"]:
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="soc_ddp_") as out_dir:
+            ddp_path(smi, out_dir)
+        with tempfile.TemporaryDirectory(prefix="soc_joint_") as out_dir:
+            joint_path(smi, out_dir)
+        return 0
     if argv:
-        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times or --train-times)",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times, --train-times or "
+              "--multi-rank)", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -1795,6 +2314,15 @@ def main(argv) -> int:
     small_reference("xla", T=1)
     davis_path(smi)
     a2d_eval_path(smi)
+    with tempfile.TemporaryDirectory(prefix="soc_ddp_") as out_dir:
+        ddp = ddp_path(smi, out_dir)
+    with tempfile.TemporaryDirectory(prefix="soc_joint_") as out_dir:
+        joint = joint_path(smi, out_dir)
+    with tempfile.TemporaryDirectory(prefix="soc_resnet_") as out_dir:
+        resnet = resnet_path(smi, out_dir)
+    for path in (ddp, joint, resnet):
+        k1["launches"] += path["k1"]
+        k2["launches"] += path["k2"]
 
     log(smi)
     keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",

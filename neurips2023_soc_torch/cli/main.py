@@ -1,6 +1,12 @@
 """Training and evaluation entry point (reference main.py), on the CUDA card:
 
     python -m neurips2023_soc_torch.cli.main -c configs/a2d_sentences.yaml -rm train
+    torchrun --nproc_per_node 8 -m neurips2023_soc_torch.cli.main -c configs/a2d_sentences.yaml
+
+Under torchrun each rank trains on its share of every global batch
+(DistributedDataParallel; `optimizer_sharding: zero1` shards AdamW's state),
+on NCCL unless `dist_backend` / DIST_BACKEND says gloo; ranks other than 0
+print nothing unless asked to (`print(..., force=True)`).
 
 Modes: `train`, `resume_train` (from `-ckpt`, else the latest epoch under
 output_dir), `test` (the per-epoch evaluator once, on the `-ckpt` weights) and
@@ -19,7 +25,8 @@ from ..data.collate import collate_batch
 from ..device import resolve_device
 from ..models.text_encoder import build_tokenizer
 from ..parallel import initialize_distributed, process_index_and_count
-from ..training.trainer import Trainer
+from ..training.trainer import Trainer, check_batch_divides
+from ..utils.logging import setup_for_distributed
 from ..utils.padded import train_size_buckets
 from .infer_refytb import add_device_arg
 
@@ -86,7 +93,7 @@ def make_batch_iterator(dataset, config, tokenizer, num_hosts: Optional[int] = N
     num_hosts = world if num_hosts is None else num_hosts
     host_id = rank if host_id is None else host_id
     bs = int(config.batch_size)
-    assert bs % num_hosts == 0, f"global batch_size={bs} must divide over {num_hosts} hosts"
+    check_batch_divides(bs, num_hosts)
     local_bs = bs // num_hosts
     num_workers = int(config.get("num_workers", 0) or 0)
     sampler = ShardedEpochSampler(len(dataset), num_hosts, host_id, shuffle=True,
@@ -183,6 +190,7 @@ def run(config, running_mode: str, train_dataset=None, val_dataset=None, device=
     `pred`, else None."""
     device = resolve_device(device)
     initialize_distributed(config)
+    setup_for_distributed()
     tokenizer = build_tokenizer(config.text_encoder_type, config.get("text_bucket", 32))
     dataset = train_dataset if train_dataset is not None else build_train_dataset(config)
     trainer = Trainer(config, train_batches=make_batch_iterator(dataset, config, tokenizer),

@@ -19,6 +19,7 @@ from ..device import resolve_device
 from ..models.text_encoder import build_tokenizer
 from ..parallel import initialize_distributed
 from ..training.trainer import Trainer
+from ..utils.logging import setup_for_distributed
 from ..utils.padded import train_size_buckets
 from .infer_refytb import add_device_arg
 from .main import load_or_init, make_batch_iterator, train_transforms_kwargs
@@ -74,6 +75,7 @@ def run(config, running_mode: str, train_dataset=None, val_sets=None, device=Non
     is the CUDA card. Returns (trainer, the metrics for `test`, else None)."""
     device = resolve_device(device)
     initialize_distributed(config)
+    setup_for_distributed()
     tokenizer = build_tokenizer(config.text_encoder_type, config.get("text_bucket", 32))
     dataset = train_dataset if train_dataset is not None else build_pretrain_dataset(config)
     trainer = Trainer(

@@ -5,7 +5,8 @@ so a parameter tree of the JAX package (nested dicts of numpy arrays, as
 `jax.tree_util.tree_map(np.asarray, params)` gives) converts key for key and
 loads with `strict=True`. The mapping below is the port's own copy of
 neurips2023_soc_tpu/training/convert.py:flax_to_torch, extended with the
-two-stage encoder heads, which the reference lacks.
+two-stage encoder heads, which the reference lacks, and with the ResNet-50
+backbone, which the JAX converter does not map.
 
 Layout transforms (flax -> torch):
   linear : (in, out)              -> (out, in)
@@ -32,6 +33,10 @@ INVERSE_TRANSFORMS = {
     "conv3d": lambda x: np.ascontiguousarray(np.transpose(x, (4, 3, 0, 1, 2))),
     "copy": lambda x: np.asarray(x),
 }
+
+
+_FROZEN_BN_LEAVES = {"frozen_bn_scale": "weight", "frozen_bn_bias": "bias",
+                     "frozen_bn_mean": "running_mean", "frozen_bn_var": "running_var"}
 
 
 def flax_to_torch(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
@@ -101,6 +106,19 @@ def flax_to_torch(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
         m2 = re.match(r"out_norm_(\d+)/", rest)
         if m2:
             return norm(f"{bb}norm{m2.group(1)}")
+        # ResNet-50 (models/resnet.py), torchvision's keys: layer{s}_{i} ->
+        # layer{s}.{i}, downsample_{conv,bn} -> downsample.{0,1}, HWIO kernels
+        # -> OIHW, FrozenBN scale/bias/mean/var -> weight/bias/running_*
+        m2 = re.match(r"(?:layer(\d)_(\d+)/)?(conv\d|bn\d|downsample_conv|downsample_bn)/$",
+                      rest[:-len(leaf)])
+        if m2:
+            s, i, mod = m2.groups()
+            tp = bb + (f"layer{s}.{i}." if s else "")
+            mod = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(mod, mod)
+            if leaf == "kernel":
+                return f"{tp}{mod}.weight", "conv"
+            if leaf in _FROZEN_BN_LEAVES:
+                return f"{tp}{mod}.{_FROZEN_BN_LEAVES[leaf]}", "copy"
         return None
 
     # ---------------- text encoder: roberta ----------------

@@ -200,11 +200,17 @@ def evaluate_coco_pretrain_batches(model: torch.nn.Module, batches: Iterable[Dic
     return metrics
 
 
-def _batches(dataset, tokenizer, batch_size: int, **collate_kwargs):
+def _batches(dataset, tokenizer, batch_size: int, shard: bool = False, **collate_kwargs):
+    """Collated batches of `dataset` in order; `shard` keeps this rank's
+    samples (rank::world), for an evaluator that gathers every rank's
+    results (the reference's DistributedSampler over the val split)."""
     from .data.collate import collate_batch
+    from .parallel.multihost import process_index_and_count
 
-    for start in range(0, len(dataset), batch_size):
-        samples = [dataset[i] for i in range(start, min(start + batch_size, len(dataset)))]
+    rank, world = process_index_and_count() if shard else (0, 1)
+    idx = range(rank, len(dataset), world)
+    for start in range(0, len(idx), batch_size):
+        samples = [dataset[i] for i in idx[start:start + batch_size]]
         yield collate_batch(samples, tokenizer, **collate_kwargs)
 
 
@@ -212,7 +218,9 @@ def build_a2d_evaluator(dataset, tokenizer, eval_batch_size: int = 4,
                         calculate_pr: bool = True, collate_kwargs: Optional[Dict] = None,
                         gt_json_path: Optional[str] = None) -> Callable:
     """Per-epoch A2D/JHMDB evaluation hook for the Trainer (reference
-    trainer.py:252-313). The GT annotations are built once and cached; with
+    trainer.py:252-313). Under a process group each rank evaluates its
+    share of the split and the detections are gathered (every rank gets the
+    same metrics). The GT annotations are built once and cached; with
     `gt_json_path` (the reference's `dataset_coco_gt_format_path`) the first
     process writes the COCO-format GT JSON there once."""
     from .parallel.multihost import is_main_process
@@ -226,7 +234,7 @@ def build_a2d_evaluator(dataset, tokenizer, eval_batch_size: int = 4,
             if gt_json_path and not Path(gt_json_path).exists() and is_main_process():
                 write_coco_gt_json(gt_cache["gt"], gt_json_path)
         return evaluate_a2d_batches(
-            model, _batches(dataset, tokenizer, eval_batch_size, **collate_kwargs),
+            model, _batches(dataset, tokenizer, eval_batch_size, shard=True, **collate_kwargs),
             gt_cache["gt"], calculate_pr)
 
     return evaluate

@@ -3,9 +3,15 @@ neurips2023_soc_tpu/losses/criterion.py).
 
 Per decoder layer: Hungarian re-match, then mask (focal + dice), class (focal
 on visibility-gated labels), box (L1 + GIoU) and the video-level
-visual-linguistic contrastive loss. `num_masks` is the batch's count of
-visible instance frames, a tensor on the device (no host read); on one card
-it is already the global count.
+visual-linguistic contrastive loss. `num_masks` is JAX's global count of
+visible instance frames, max(T * valid.sum(), 1) over the whole batch, a
+tensor on the device (no host read). Under a process group each rank holds
+its share of the batch: the count is summed over the ranks (one all-reduce
+per step), clamped at 1 and divided by the world size. DDP averages the
+ranks' gradients, so the mean over ranks of the rank losses is JAX's loss
+on the whole batch. `loss_con` is a mean over the local batch; the trainer
+gives every rank a local batch of the same size, so its mean over ranks is
+the global mean. The matcher works per sample.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import resize_bilinear
+from ..parallel.multihost import all_reduce_sum, world_size
 from ..utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou
 from .matcher import MatchCosts, hungarian_match
 from .segmentation import dice_loss, sigmoid_focal_loss
@@ -47,8 +54,14 @@ def _take_queries(x: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, idx)
 
 
+def global_num_masks(T: int, valid: torch.Tensor) -> torch.Tensor:
+    """max(T * valid.sum() over every rank's batch, 1) / world size."""
+    count = all_reduce_sum((T * valid.float().sum()).detach())
+    return count.clamp(min=1.0) / world_size()
+
+
 def _layer_losses(layer_out: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
-                  cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+                  cfg: CriterionConfig, num_masks: torch.Tensor) -> Dict[str, torch.Tensor]:
     T, B, Nq, K = layer_out["pred_cls"].shape
     Ht, Wt = targets["masks"].shape[-2:]
     N = targets["inst_valid"].shape[1]
@@ -63,7 +76,6 @@ def _layer_losses(layer_out: Dict[str, torch.Tensor], targets: Dict[str, torch.T
     assign = hungarian_match(layer_out, targets, up_cost, cfg.costs)  # (B, N)
     del up_cost
 
-    num_masks = (T * valid.sum()).clamp(min=1.0)
     losses = {}
 
     # masks
@@ -135,10 +147,11 @@ def compute_criterion(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch
         d.update(shared)
         return d
 
-    losses = dict(_layer_losses(layer_slice(Lyr - 1), targets, cfg))
+    num_masks = global_num_masks(outputs["pred_cls"].shape[1], targets["inst_valid"])
+    losses = dict(_layer_losses(layer_slice(Lyr - 1), targets, cfg, num_masks))
     if cfg.aux_loss:
         for i in range(Lyr - 1):
-            aux = _layer_losses(layer_slice(i), targets, cfg)
+            aux = _layer_losses(layer_slice(i), targets, cfg, num_masks)
             losses.update({f"{k}_{i}": v for k, v in aux.items()})
     return losses
 

@@ -5,6 +5,7 @@ import torch
 from ..device import resolve_device
 from .common import init_weights
 from .deformable_transformer import DeformableTransformer
+from .resnet import FrozenBN, ResNet50Backbone
 from .segmentation import FPNSpatialDecoder, dynamic_mask_with_coords
 from .soc import SOC
 from .text_encoder import ROBERTA_CONFIGS, RobertaEncoder, build_tokenizer
@@ -18,7 +19,8 @@ def build_model(config, device: Optional[Union[str, torch.device]] = None,
     seeded torch.Generator and placed on `device` — the CUDA card when None
     (RuntimeError without CUDA). Parameters are float32; compute runs in
     `compute_dtype`; `swin_attn_impl: pallas` runs the backbone's window
-    attention through kernel K3 (inference only: K3 has no backward)."""
+    attention through kernel K3 (inference only: K3 has no backward);
+    `backbone: resnet50` builds the ResNet-50 backbone (models/resnet.py)."""
     dev = resolve_device(device)
     dt = config.DeformTransformer
     voc = config.VOC
@@ -63,6 +65,8 @@ __all__ = [
     "build_model",
     "DeformableTransformer",
     "FPNSpatialDecoder",
+    "FrozenBN",
+    "ResNet50Backbone",
     "dynamic_mask_with_coords",
     "RobertaEncoder",
     "ROBERTA_CONFIGS",

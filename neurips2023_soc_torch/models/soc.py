@@ -36,6 +36,7 @@ from ..utils.boxes import inverse_sigmoid
 from .common import MLP, MMF, Conv2d, Embedding, FeatureResizer, GroupNorm, Linear
 from .deformable_transformer import DeformableTransformer
 from .position_encoding import position_embedding_sine_1d, position_embedding_sine_2d
+from .resnet import ResNet50Backbone
 from .segmentation import FPNSpatialDecoder, dynamic_mask_with_coords, mask_head_param_split
 from .text_encoder import ROBERTA_CONFIGS, RobertaEncoder
 from .video_swin import SWIN_CONFIGS, build_video_swin
@@ -65,9 +66,9 @@ class SOC(nn.Module):
                  dtype: torch.dtype = torch.float32, dropout: float = 0.1,
                  freeze_text_encoder: bool = True, swin_attn_impl: str = "xla"):
         super().__init__()
-        if backbone_name not in SWIN_CONFIGS:
+        if backbone_name not in SWIN_CONFIGS and backbone_name != "resnet50":
             raise ValueError(f"unknown backbone {backbone_name} "
-                             f"(this port has {sorted(SWIN_CONFIGS)})")
+                             f"(this port has {sorted(SWIN_CONFIGS) + ['resnet50']})")
         if not with_box_refine:
             # every config refines boxes; the JAX package's shared heads
             # (`*_shared`) have no reference state_dict key to load from
@@ -80,11 +81,15 @@ class SOC(nn.Module):
         self.mask_kernels_dim = mask_kernels_dim
         self.controller_layers = controller_layers
         self.dynamic_mask_channels = dynamic_mask_channels
-        self.backbone = nn.ModuleList(
-            [_BackboneBody(build_video_swin(backbone_name, use_remat, dtype,
-                                            swin_attn_impl))])
-        embed = SWIN_CONFIGS[backbone_name]["embed_dim"]
-        backbone_channels = [embed * 2 ** i for i in range(4)]
+        if backbone_name == "resnet50":
+            # swin_attn_impl does not apply; the convolutions run in cuDNN
+            body = ResNet50Backbone(dtype)
+            backbone_channels = [256, 512, 1024, 2048]
+        else:
+            body = build_video_swin(backbone_name, use_remat, dtype, swin_attn_impl)
+            embed = SWIN_CONFIGS[backbone_name]["embed_dim"]
+            backbone_channels = [embed * 2 ** i for i in range(4)]
+        self.backbone = nn.ModuleList([_BackboneBody(body)])
 
         self.transformer = DeformableTransformer(
             d_model=C, n_heads=nheads, num_encoder_layers=enc_layers,

@@ -15,18 +15,35 @@ the loss does not reach), the port hands AdamW zeros too, so its moments
 decay and its weight decay applies as in optax. The lr of update u (0-based,
 counted in updates) is base * gamma ** #{m in milestones: u >= m}
 (optax.piecewise_constant_schedule). The global norm that clips runs over
-every gradient, the frozen ones included; a frozen text encoder's is zero
-(SOC detaches its outputs, as JAX's stop_gradient does), so the port keeps
-no accumulator for the frozen group.
+every gradient, the frozen ones included, as optax.clip_by_global_norm runs
+before set_to_zero: the ResNet backbone's FrozenBN tensors (models/resnet.py;
+label `frozen`, as JAX's `frozen_bn` params) get gradients that enter the
+norm and never an update. A frozen text encoder gets no gradient (SOC
+detaches its outputs, as JAX's stop_gradient does, where its gradient is
+zero), so the port keeps no accumulator for it.
+
+`zero1=True` (`optimizer_sharding: zero1`) runs AdamW as ZeRO-1
+(parallel/zero.py) when a process group runs; the clip, the schedule and
+the accumulation stay here. In a single process it is the plain AdamW.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.multihost import distributed, is_main_process
+
+# the FrozenBN tensors of the ResNet backbone under the reference's
+# torchvision keys: bn1, layer{s}.{i}.bn{1,2,3} and layer{s}.{i}.downsample.1
+_FROZEN_BN = re.compile(
+    r"^backbone\.0\.body\.(.*\.)?(bn\d|downsample\.1)\.(weight|bias|running_mean|running_var)$")
+
 
 def param_label(name: str, freeze_text: bool) -> str:
+    if _FROZEN_BN.match(name):
+        return "frozen"
     if name.startswith("backbone."):
         return "backbone"
     if name.startswith("text_encoder."):
@@ -78,7 +95,7 @@ class Optimizer:
                  lr: float, lr_backbone: float, text_encoder_lr: float,
                  weight_decay: float = 1e-4, clip_max_norm: float = 0.1,
                  milestones_steps: Sequence[int] = (), gamma: float = 0.1,
-                 freeze_text: bool = True, grad_accum_steps: int = 1):
+                 freeze_text: bool = True, grad_accum_steps: int = 1, zero1: bool = False):
         self.params: Dict[str, torch.nn.Parameter] = dict(named_params)
         self.labels = {n: param_label(n, freeze_text) for n in self.params}
         self.base_lr = {"main": lr, "backbone": lr_backbone, "text": text_encoder_lr}
@@ -87,16 +104,27 @@ class Optimizer:
         self.gamma = gamma
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         self.trainable = [p for n, p in self.params.items() if self.labels[n] != "frozen"]
+        self.frozen = [p for n, p in self.params.items() if self.labels[n] == "frozen"]
         groups = []
         for label in ("main", "backbone", "text"):
             ps = [p for n, p in self.params.items() if self.labels[n] == label]
             if ps:
                 groups.append({"params": ps, "lr": self.base_lr[label], "label": label})
-        self.adamw = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
+        adamw_kwargs = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        self.zero1 = bool(zero1) and distributed()
+        if self.zero1:
+            from ..parallel.zero import zero1_adamw
+
+            self.adamw = zero1_adamw(groups, **adamw_kwargs)
+        else:
+            self.adamw = torch.optim.AdamW(groups, **adamw_kwargs)
         self.count = 0  # optimizer updates applied
         self.mini_step = 0  # micro-batches accumulated towards the next update
-        self.acc: Optional[List[torch.Tensor]] = None  # running mean of micro-grads
+        # running means of the micro-grads (whole on every rank, also under
+        # ZeRO-1): `acc` of the trainable tensors, `frozen_acc` of the frozen
+        # ones the loss reaches, made at their first gradient
+        self.acc: Optional[List[torch.Tensor]] = None
+        self.frozen_acc: List[Optional[torch.Tensor]] = [None] * len(self.frozen)
 
     def lr(self, label: str = "main") -> float:
         """The lr the next update applies to a group."""
@@ -106,22 +134,28 @@ class Optimizer:
     def apply_gradients(self) -> bool:
         """One micro-step. Returns True when it applied an update (every
         grad_accum_steps-th call), False while accumulating."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.trainable]
-        frozen = [p.grad for n, p in self.params.items()
-                  if self.labels[n] == "frozen" and p.grad is not None]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.trainable]
+        frozen = [p.grad for p in self.frozen]  # None where the loss does not reach
         k = self.grad_accum_steps
         if k > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(p) for p in self.trainable]
             # optax.MultiSteps' running mean: acc + (g - acc) / (n + 1)
+            n = self.mini_step
             for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (self.mini_step + 1))
+                a.add_((g - a) / (n + 1))
+            for i, g in enumerate(frozen):
+                if g is not None and self.frozen_acc[i] is None:
+                    self.frozen_acc[i] = torch.zeros_like(g)
+                a = self.frozen_acc[i]
+                if a is not None:
+                    a.add_((g - a) / (n + 1)) if g is not None else a.mul_(n / (n + 1))
             self.mini_step += 1
             self.zero_grad()
             if self.mini_step < k:
                 return False
-            grads, self.mini_step, frozen = [a.clone() for a in self.acc], 0, []
+            grads, frozen = [a.clone() for a in self.acc], self.frozen_acc
+            self.mini_step, self.frozen_acc = 0, [None] * len(self.frozen)
             for a in self.acc:
                 a.zero_()
         if self.clip_max_norm > 0:
@@ -142,25 +176,37 @@ class Optimizer:
         for p in self.params.values():
             p.grad = None
 
-    def state_dict(self) -> Dict:
+    def state_dict(self) -> Optional[Dict]:
+        """Under ZeRO-1 a collective that every rank calls: the whole state
+        on rank 0, None on the others."""
+        if self.zero1:
+            from ..parallel.zero import consolidate_state_dict
+
+            consolidate_state_dict(self.adamw)
+            if not is_main_process():
+                return None
         return {"adamw": self.adamw.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "acc": self.acc, "frozen_acc": self.frozen_acc}
 
     def load_state_dict(self, state: Dict) -> None:
+        """The whole state (under ZeRO-1 every rank keeps its partition)."""
         self.adamw.load_state_dict(state["adamw"])
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
         acc = state.get("acc")
         self.acc = None if acc is None else [
             a.to(p.device) for a, p in zip(acc, self.trainable)]
+        frozen_acc = state.get("frozen_acc") or [None] * len(self.frozen)
+        self.frozen_acc = [None if a is None else a.to(p.device)
+                           for a, p in zip(frozen_acc, self.frozen)]
 
 
 def build_optimizer(model: torch.nn.Module, lr: float, lr_backbone: float,
                     text_encoder_lr: float, weight_decay: float = 1e-4,
                     clip_max_norm: float = 0.1, milestones_steps: Sequence[int] = (),
                     gamma: float = 0.1, freeze_text: bool = True,
-                    grad_accum_steps: int = 1) -> Optimizer:
+                    grad_accum_steps: int = 1, zero1: bool = False) -> Optimizer:
     """`milestones_steps` in optimizer-update units (the trainer converts
     micro-step milestones with update_milestones_from_microsteps)."""
     return Optimizer(model.named_parameters(), lr, lr_backbone, text_encoder_lr,
                      weight_decay, clip_max_norm, milestones_steps, gamma, freeze_text,
-                     grad_accum_steps)
+                     grad_accum_steps, zero1)

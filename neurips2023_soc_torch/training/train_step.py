@@ -8,6 +8,14 @@ returns the same state object. Dropout and drop-path masks come from one
 torch.Generator on the model's device, reseeded from `seed` every step (the
 counterpart of `rngs={"dropout": rng}`). Metrics stay tensors on the device:
 reading them is the caller's choice.
+
+Under a process group `state.model` is the DistributedDataParallel wrapper
+(training/trainer.py): backward leaves every rank the mean of the ranks'
+gradients, the criterion normalises by the global count of masks, and the
+loss terms are averaged over the ranks, so the step is JAX's global step
+over the whole batch. Every micro-step synchronises its gradients (no
+`no_sync`): the optimizer consumes `.grad` each micro-step, and `grad_norm`
+is the micro-batch's global norm, as in JAX.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..losses import CriterionConfig, compute_criterion, total_loss
+from ..parallel.multihost import all_reduce_mean, distributed
 from .optim import Optimizer, global_norm
 
 TARGET_KEYS = (
@@ -45,8 +54,9 @@ def device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch
 def make_train_step(model: torch.nn.Module, crit_cfg: CriterionConfig,
                     has_valid_indices: bool = False):
     """Returns step(state, batch, seed) -> (state, metrics); metrics hold
-    `loss`, every loss term and `grad_norm` (the global norm of the
-    micro-batch's gradients, before clipping), as tensors."""
+    `loss`, every loss term (each the mean over the ranks) and `grad_norm`
+    (the global norm of the micro-batch's gradients, before clipping), as
+    tensors."""
     device = next(model.parameters()).device
     rng = torch.Generator(device=device)
 
@@ -65,8 +75,10 @@ def make_train_step(model: torch.nn.Module, crit_cfg: CriterionConfig,
         grad_norm = global_norm(p.grad for p in state.model.parameters())
         state.optimizer.apply_gradients()
         state.step += 1
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
-                   "grad_norm": grad_norm}
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if distributed():  # one all-reduce for every term
+            metrics = dict(zip(metrics, all_reduce_mean(torch.stack(list(metrics.values())))))
+        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return step

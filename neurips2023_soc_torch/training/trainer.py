@@ -1,5 +1,5 @@
-"""Single-card trainer (torch twin of neurips2023_soc_tpu/training/trainer.py,
-without its mesh, ZeRO-1 and wandb).
+"""Trainer (torch twin of neurips2023_soc_tpu/training/trainer.py), on one
+card or on several ranks of a torch.distributed process group.
 
 Behaviour kept from the reference trainer: 3 lr groups with MultiStepLR
 (gamma 0.2 for A2D, 0.1 otherwise) counted in updates, grad accumulation,
@@ -9,8 +9,21 @@ mean mask mAP when pretraining with val sets, else by the lowest train loss),
 at most 5 epoch checkpoints (10 when pretraining) plus the best, resume, the
 `pretrained_weights` warm start, strict weight loading for `-rm test` /
 `pred`, a torch.profiler trace of steps 1..`profile_steps` of the first
-epoch, and a JSON-lines `log.txt` per epoch. The loss is read on the host
+epoch, a JSON-lines `log.txt` per epoch and, with `wandb_mode: online`, the
+same records to wandb (imported only then). The loss is read on the host
 every step (the abort check), as in JAX.
+
+Several ranks (the JAX package's data mesh, parallel/mesh.py): when a
+process group runs, the model is wrapped in DistributedDataParallel, each
+rank takes `batch_size / world` samples of every global batch
+(cli/main.py:make_batch_iterator), and the step is one global step
+(training/train_step.py). `optimizer_sharding: zero1` shards AdamW's state
+(parallel/zero.py). The frozen text encoder's parameters are set to need no
+gradient, so DDP reduces exactly the tensors the loss reaches (every other
+parameter gets a gradient in each step). Dropout and drop path draw from the
+step's seed plus the rank. Rank 0 alone writes `log.txt`, checkpoints,
+`best.json` and to wandb; the others wait at a barrier after each save, and
+every rank reads a checkpoint to resume.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..losses import build_criterion_config
 from ..models import build_model
+from ..parallel.multihost import barrier, distributed, is_main_process, process_index_and_count
 from ..utils.logging import MetricLogger, SmoothedValue, profile_trace
 from ..utils.prefetch import prefetch
 from .checkpoint import CheckpointManager, load_params_from_path, load_pretrained
@@ -32,15 +46,38 @@ from .optim import build_optimizer, update_milestones_from_microsteps
 from .train_step import TrainState, make_train_step
 
 
+def check_batch_divides(batch_size: int, world: int) -> None:
+    """The global batch must divide over the ranks (the JAX trainer's check
+    of its devices, with its message). JAX's `allow_idle_devices` shrinks
+    the mesh instead; DDP needs every rank in each step's all-reduce, so the
+    port cannot leave a rank idle and raises in either case."""
+    if batch_size % world == 0:
+        return
+    n = max(d for d in range(1, world + 1) if batch_size % d == 0)
+    raise ValueError(
+        f"batch_size={batch_size} is not divisible by the {world} "
+        f"available devices — training would use {n} device(s) "
+        f"and leave {world - n} idle. Raise batch_size to a "
+        f"multiple of {world}, or launch {n} ranks (a DDP rank cannot be left idle, "
+        "so allow_idle_devices does not apply here).")
+
+
 class Trainer:
     def __init__(self, config, train_batches: Callable[[int], Iterable[Dict]],
                  steps_per_epoch: int, evaluate_fn: Optional[Callable] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        """train_batches(epoch) yields host batch dicts (data/collate.py);
-        evaluate_fn(model, epoch) -> metrics dict, run after every epoch (the
-        evaluators of evaluators.py); `device` None means the CUDA card."""
+        """train_batches(epoch) yields host batch dicts (data/collate.py),
+        this rank's share under a process group; evaluate_fn(model, epoch)
+        -> metrics dict, run after every epoch (the evaluators of
+        evaluators.py); `device` None means the CUDA card (the rank's own
+        under a process group)."""
         self.config = config
+        self.rank, self.world = process_index_and_count()
+        check_batch_divides(int(config.batch_size), self.world)
+        self.local_batch = int(config.batch_size) // self.world
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = build_model(config, device=self.device, seed=int(config.seed))
         self.crit_cfg = build_criterion_config(config)
         self.train_batches = train_batches
@@ -66,6 +103,18 @@ class Trainer:
                                  for m in (config.get("lr_drop", []) or [])]
         self._state: Optional[TrainState] = None
         self._train_step = None
+        self._zero1 = str(config.get("optimizer_sharding", "replicated")).lower() == "zero1"
+        # optional wandb (reference trainer.py:113-114), rank 0 only; the
+        # package is imported only when asked for
+        self._wandb = None
+        if config.get("wandb_mode") == "online" and is_main_process():
+            try:
+                import wandb
+
+                wandb.init(project="RefVOS", config=config.to_dict(), name="SOC_torch")
+                self._wandb = wandb
+            except ImportError:
+                print("wandb requested but not installed; logging to log.txt only")
 
     def init_state(self) -> TrainState:
         """The optimizer and train step, after the `pretrained_weights` warm
@@ -83,12 +132,25 @@ class Trainer:
             weight_decay=float(cfg.weight_decay), clip_max_norm=float(cfg.clip_max_norm),
             milestones_steps=update_milestones_from_microsteps(self.milestones_steps, accum),
             gamma=self.gamma, freeze_text=bool(cfg.freeze_text_encoder),
-            grad_accum_steps=accum)
-        self._state = TrainState(self.model, optimizer)
+            grad_accum_steps=accum, zero1=self._zero1)
+        self._state = TrainState(self._ddp_model(), optimizer)
         has_valid = self.dataset_name in ("a2d_sentences", "jhmdb_sentences")
-        self._train_step = make_train_step(self.model, self.crit_cfg,
+        self._train_step = make_train_step(self._state.model, self.crit_cfg,
                                            has_valid_indices=has_valid)
         return self._state
+
+    def _ddp_model(self) -> torch.nn.Module:
+        """The module the train step calls: the model itself in a single
+        process, its DistributedDataParallel wrapper under a process group
+        (which broadcasts rank 0's parameters to every rank)."""
+        if not distributed():
+            return self.model
+        if self.config.freeze_text_encoder:
+            self.model.text_encoder.requires_grad_(False)
+        from torch.nn.parallel import DistributedDataParallel
+
+        ids = [self.device.index] if self.device.type == "cuda" else None
+        return DistributedDataParallel(self.model, device_ids=ids)
 
     def train(self) -> None:
         """Setting config.profile_steps = N wraps steps 1..N of the first
@@ -112,7 +174,12 @@ class Trainer:
                 if profile_steps and self.epoch == 0 and i == 1:
                     prof = profile_trace(str(self.output_dir / "profile"))
                     prof.__enter__()
-                step_seed = seed * 1_000_003 + self._state.step
+                if distributed() and batch["pixels"].shape[1] != self.local_batch:
+                    # the criterion's loss_con is a local mean: equal local
+                    # batches make its mean over ranks the global mean
+                    raise ValueError(f"rank {self.rank}: a local batch of "
+                                     f"{batch['pixels'].shape[1]}, expected {self.local_batch}")
+                step_seed = seed * 1_000_003 + self._state.step + self.rank
                 self._state, metrics = self._train_step(self._state, batch, step_seed)
                 loss = float(metrics["loss"])  # host read: the abort check
                 if not math.isfinite(loss):
@@ -151,8 +218,11 @@ class Trainer:
                 log_stats.update({f"eval_{k}": v for k, v in eval_metrics.items()})
             is_best = self._update_best(eval_metrics, epoch_loss)
             self.save_checkpoint(is_best, log_stats)
-            with open(self.output_dir / "log.txt", "a") as f:
-                f.write(json.dumps(log_stats) + "\n")
+            if is_main_process():
+                with open(self.output_dir / "log.txt", "a") as f:
+                    f.write(json.dumps(log_stats) + "\n")
+                if self._wandb is not None:
+                    self._wandb.log(log_stats)
 
     def _update_best(self, eval_metrics: Dict, epoch_loss: float) -> bool:
         """Best by `mAP 0.5:0.95` for A2D, by `mean_mask_mAP` when pretraining
@@ -174,14 +244,21 @@ class Trainer:
             return True
         return False
 
-    def save_checkpoint(self, is_best: bool, extra: Dict) -> Path:
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self._state.optimizer.state_dict(),
-                 "step": self._state.step}
-        extra = {k: v for k, v in extra.items() if isinstance(v, (int, float, str))}
-        extra["best_map"] = float(self.best_map)
-        extra["best_loss"] = float(self.best_loss)
-        return self.ckpt.save(self.epoch, state, is_best, extra=extra)
+    def save_checkpoint(self, is_best: bool, extra: Dict) -> Optional[Path]:
+        """Every rank calls it (the ZeRO-1 state is gathered to rank 0);
+        rank 0 writes, then all wait for it. Returns the checkpoint's path
+        on rank 0, None on the others."""
+        optimizer = self._state.optimizer.state_dict()
+        path = None
+        if is_main_process():
+            state = {"model": self.model.state_dict(), "optimizer": optimizer,
+                     "step": self._state.step}
+            extra = {k: v for k, v in extra.items() if isinstance(v, (int, float, str))}
+            extra["best_map"] = float(self.best_map)
+            extra["best_loss"] = float(self.best_loss)
+            path = self.ckpt.save(self.epoch, state, is_best, extra=extra)
+        barrier("checkpoint")
+        return path
 
     def load_weights(self, path, strict: bool = True, _loaded_ckpt=None) -> None:
         """Model weights from an explicit checkpoint path (a reference

@@ -1,7 +1,7 @@
 """Training telemetry (copy of the metric helpers of
 neurips2023_soc_tpu/utils/logging.py): window-smoothed values, a logger that
-formats them, a step timer, and a torch.profiler trace of a span of steps
-(torch is imported only by the trace)."""
+formats them, a step timer, a torch.profiler trace of a span of steps (torch
+is imported only by the trace), and the print gate of the ranks other than 0."""
 from __future__ import annotations
 
 import contextlib
@@ -95,3 +95,24 @@ def step_timer(metrics: MetricLogger, name: str = "step_time"):
     t0 = time.perf_counter()
     yield
     metrics.update(**{name: time.perf_counter() - t0})
+
+
+def setup_for_distributed(is_main: Optional[bool] = None) -> None:
+    """Silences `print` on ranks other than 0 unless called with
+    `force=True` (reference misc.py:163-175); `is_main` None asks the
+    running process group. Rank 0, and a single process, print as before."""
+    import builtins
+
+    if is_main is None:
+        from ..parallel.multihost import is_main_process
+
+        is_main = is_main_process()
+    if is_main:
+        return
+    orig_print = builtins.print
+
+    def print_main_only(*args, force: bool = False, **kwargs):
+        if force:
+            orig_print(*args, **kwargs)
+
+    builtins.print = print_main_only

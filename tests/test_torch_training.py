@@ -61,12 +61,14 @@ def _tree(rng):
 
 
 @pytest.mark.parametrize("accum,freeze,scale", [(1, True, 1.0), (1, False, 1e-3),
-                                                (2, False, 1.0), (2, True, 1e-3)])
+                                                (2, False, 1.0), (2, True, 1e-3),
+                                                (2, True, 1.0)])
 def test_optimizer_vs_optax(accum, freeze, scale):
     """Three updates on identical gradients: the lr drops after the first
     update, clipping is active (scale 1) or not (1e-3), gradients are
-    accumulated over 2 micro-steps or not, and a frozen text encoder stays
-    put while an unused parameter still decays."""
+    accumulated over 2 micro-steps or not (the frozen ones too: they enter
+    the clip norm), and a frozen text encoder stays put while an unused
+    parameter still decays."""
     rng = np.random.RandomState(accum * 10 + int(freeze))
     tree = _tree(rng)
     kw = dict(lr=1e-2, lr_backbone=3e-3, text_encoder_lr=5e-3, weight_decay=0.05,
