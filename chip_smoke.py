@@ -65,6 +65,26 @@ prints no result):
                (device time by kernel); then each of one clip's 24 K3 calls
                (two bf16 ulps of scale) and 6 K1 calls (K1's bf16 tolerance)
                held against the plain version in f32 on the same inputs.
+     golden  — the port against the JAX package's golden outputs at full width
+               (tests/torch_golden, made on the CPU by make_golden.py): the
+               Video-Swin-B SOC above with the goldens' seeded weights
+               (convert.seeded_state_dict; their fingerprint checked against
+               meta.json), TF32 off. (a) float32, swin_attn_impl xla, and (b)
+               float32 with K3: every output of golden.soc_record (last layer's
+               classes, boxes, logits, the chosen query's mask logits, sentence
+               feature, a sample of each backbone level, score sums) within
+               golden.TOL_F32 of its scale, the engine's chosen query JAX's
+               unless JAX's top-two margin is at most twice the score error (a
+               near tie), its masks different from JAX's only on pixels within
+               golden.PROB_TOL of the threshold in JAX's probabilities; 12 K1
+               (and 48 K3 in (b)) per two clips. (c) bfloat16 with either:
+               within golden.BF16_TOL, mask pixels different only where JAX's
+               upsampled logit lies within the port's measured stride-4 logit
+               error (plus bf16's rounding of the logits) of 0. (d) g2's
+               training step in float32 (dropout off, no drop path) with 6 K1
+               and 6 K2: losses, matcher queries, global and per-key gradient
+               norms and sampled gradient entries within golden.STEP_TOL
+               (golden.compare_step).
   5. train   — the training path at the same width: Trainer over
                SyntheticRVOSDataset clips of 8 x 360 x 640, batch 1, one epoch
                of 4 steps (the first a warm-up), dropout 0.1, drop path 0.2,
@@ -164,9 +184,13 @@ Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
 path's shapes, `--train-times` only runs phase train (a copy of this
 script in an older checkout runs that checkout's code: an A/B in one chip
-call), and `--multi-rank` only runs phases ddp and joint (for a machine of
-several cards). The second-to-last lines are the card's name/power limit and a
-JSON object of the kernels; the last line is {"ok": true, "device": {...}}.
+call), `--multi-rank` only runs phases ddp, joint and pool (for a machine of
+several cards), `--golden` only phase golden, and `--pool` only phase pool:
+EnginePool over every visible card with the goldens' weights (bf16, K3) on 8
+videos of 16 x 360 x 640, each video's masks bit-equal to card 0's alone, then
+four engines sharing card 0. The second-to-last lines are the card's name/power
+limit and a JSON object of the kernels; the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -186,12 +210,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neurips2023_soc_torch import golden
 from neurips2023_soc_torch.config import load_config
+from neurips2023_soc_torch.convert import seeded_state_dict, weights_fingerprint
 from neurips2023_soc_torch.data import SyntheticRVOSDataset, iterate_batches
 from neurips2023_soc_torch.inference import EnginePool, InferenceEngine, run_videos_pipelined
 from neurips2023_soc_torch.losses import compute_criterion, total_loss
 from neurips2023_soc_torch.models import build_model
-from neurips2023_soc_torch.models.common import init_weights
+from neurips2023_soc_torch.models.common import Dropout, init_weights
 from neurips2023_soc_torch.models.deformable_transformer import _offset_grid_bias
 from neurips2023_soc_torch.models.soc import SOC
 from neurips2023_soc_torch.models.text_encoder import build_tokenizer
@@ -1227,6 +1253,162 @@ def train_path(smi: str, out_dir: str) -> dict:
                 step_ms=step_ms)
 
 
+# ---------------------------------------------------------------- golden
+GOLDEN_DIR = ROOT / "tests" / "torch_golden"
+
+
+def golden_weights(meta: dict) -> dict:
+    """The goldens' seeded weights (numpy, made on the host from the model's
+    shapes on the meta device); raises unless they match the stored
+    fingerprint."""
+    with torch.device("meta"):
+        shape_model = build_model(load_config(
+            ROOT / meta["g1"]["config"]["path"], overrides=meta["g1"]["config"]["overrides"]),
+            device="meta")
+    sd = seeded_state_dict(shape_model, meta["g1"]["weights_seed"])
+    golden.check_fingerprint(weights_fingerprint(sd), meta["fingerprint"]["full"])
+    return sd
+
+
+def golden_model(meta: dict, sd: dict, attn_impl: str, dtype: str, dropout=None):
+    """The full-width SOC of the goldens on the card with the seeded weights
+    `sd`, swin_attn_impl `attn_impl`, compute dtype `dtype`; dropout set to
+    `dropout` when given (every Dropout module's p too)."""
+    cfg = load_config(ROOT / meta["g1"]["config"]["path"], overrides={
+        **meta["g1"]["config"]["overrides"], "swin_attn_impl": attn_impl,
+        "compute_dtype": dtype})
+    if dropout is not None:
+        cfg.DeformTransformer["dropout"] = dropout
+    model = build_model(cfg, device="cuda", seed=0)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    if dropout is not None:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = dropout
+    return model
+
+
+def golden_counts() -> dict:
+    return dict(k1=ms_deform_attn.launches, k1_plain=ms_deform_attn.plain_calls,
+                k2=ms_deform_attn.bwd_launches, k2_plain=ms_deform_attn.plain_bwd_calls,
+                k3=window_attention.launches, k3_plain=window_attention.plain_calls,
+                xla_attn=window_attention_torch.calls)
+
+
+def golden_inference(tag: str, meta: dict, g1: dict, model, attn_impl: str, tol: float,
+                     prob_tol=None) -> dict:
+    """golden.port_inference on the card (one clip forward for the record,
+    one through InferenceEngine.infer_videos) with its kernel counts held
+    exactly, then golden.compare_soc at `tol` and golden.compare_engine
+    (at `prob_tol`, or by the measured logit error without it), raising on a
+    failure after printing the error by tensor and by backbone level, the
+    chosen query beside JAX's and its margin, and the differing mask pixels."""
+    inf = meta["g1"]
+    T = inf["video"][0]
+    reset_counters()
+    t0 = time.perf_counter()
+    soc, masks = golden.port_inference(model, "roberta-base", inf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = golden_counts()
+    k3 = 2 * K3_PER_CLIP if attn_impl == "pallas" else 0
+    want = dict(k1=2 * MSDA_PER_CLIP, k1_plain=0, k2=0, k2_plain=0, k3=k3, k3_plain=0,
+                xla_attn=2 * K3_PER_CLIP - k3)
+    if got != want:
+        raise RuntimeError(f"[golden {tag}] kernel counts {got}, expected {want} (two clips)")
+    rep = golden.compare_soc(soc, g1["soc"], tol, T, raise_on_fail=False)
+    eng = golden.compare_engine(masks, soc, g1["engine"], g1["soc"], T, prob_tol,
+                                raise_on_fail=False)
+    levels = ", ".join(f"{rep[f'level{i}']:.3e}" for i in range(4))
+    tensors = ", ".join(f"{k} {rep[k]:.3e}" for k in
+                        ("pred_cls", "pred_boxes", "pred_logit", "pred_masks_q",
+                         "text_sentence_feature", "score_sums") if k in rep)
+    rule = (f"{int(eng['explained'])} of them within {prob_tol:g} of the threshold in JAX's "
+            f"probabilities, the farthest {eng['farthest']:.4f} from it" if prob_tol is not None
+            else f"{int(eng['explained'])} of them where JAX's logit is within the port's "
+            f"measured logit error {eng['logit_bound']:.4f} (the farthest at "
+            f"{eng['farthest']:.3f} of it)")
+    log(f"[golden {tag}] error / scale against JAX: {tensors}; backbone levels {levels}")
+    log(f"[golden {tag}] chosen query {int(eng['query'])} (JAX's {int(eng['jax_query'])}; "
+        f"JAX's top-two margin {eng['margin']:.4e}, score error {eng['score_err']:.3e}); masks "
+        f"differ from JAX's on {int(eng['differ'])} pixels = {eng['share']:.6f}, {rule}; "
+        f"counts {got}; {wall:.2f} s for the two clips (tolerance {tol:g} of scale)")
+    golden.compare_soc(soc, g1["soc"], tol, T)
+    golden.compare_engine(masks, soc, g1["engine"], g1["soc"], T, prob_tol)
+    return dict(rep=rep, eng=eng, masks=masks, counts=got)
+
+
+def golden_path(smi: str) -> dict:
+    """Phase golden: the port on the card against the JAX package's goldens
+    at full width (tests/torch_golden, made by make_golden.py on the CPU).
+    (a) f32 with swin_attn_impl xla, (b) f32 with K3, both within
+    golden.TOL_F32; (c) bf16 with each, within golden.BF16_TOL, the near-tie
+    question answered by JAX's margin; (d) the g2 training step in f32 with
+    K1 and K2 within golden.STEP_TOL. Raises on any failure."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the float32 golden comparison needs it off for "
+                           "cuBLAS and cuDNN")
+    t0 = time.perf_counter()
+    meta = golden.load_meta(GOLDEN_DIR)
+    g1, g2 = golden.load_golden(GOLDEN_DIR, "g1"), golden.load_golden(GOLDEN_DIR, "g2")
+    sd = golden_weights(meta)
+    log(f"[golden] seeded weights ({len(sd)} tensors, "
+        f"{sum(v.size for v in sd.values()) / 1e6:.1f} M values) match the goldens' "
+        f"fingerprint; made in {time.perf_counter() - t0:.1f} s; TF32 off (cuBLAS, cuDNN)")
+
+    runs = {}
+    for tag, impl, dtype, tol, rule in (
+            ("a f32 xla", "xla", "float32", golden.TOL_F32, dict(prob_tol=golden.PROB_TOL)),
+            ("b f32 K3", "pallas", "float32", golden.TOL_F32, dict(prob_tol=golden.PROB_TOL)),
+            ("c bf16 xla", "xla", "bfloat16", golden.BF16_TOL, {}),
+            ("c bf16 K3", "pallas", "bfloat16", golden.BF16_TOL, {})):
+        model = golden_model(meta, sd, impl, dtype)
+        runs[tag] = golden_inference(tag, meta, g1, model, impl, tol, **rule)
+        del model
+        torch.cuda.empty_cache()
+    a, c_x, c_k = runs["a f32 xla"], runs["c bf16 xla"], runs["c bf16 K3"]
+    log(f"[golden c] bf16 xla against bf16 K3: masks differ on "
+        f"{float(np.mean(c_x['masks'] != c_k['masks'])):.6f} of the pixels; against f32 xla "
+        f"{float(np.mean(c_x['masks'] != a['masks'])):.6f} / "
+        f"{float(np.mean(c_k['masks'] != a['masks'])):.6f}; JAX's top-two margin "
+        f"{a['eng']['margin']:.4e} against the bf16 score errors {c_x['eng']['score_err']:.3e} "
+        f"(xla), {c_k['eng']['score_err']:.3e} (K3): a swap of the chosen query would be "
+        f"{'a near tie' if c_x['eng']['near_tie'] or c_k['eng']['near_tie'] else 'a fault'}")
+
+    # (d) one training step in f32 with K1 and K2 (dropout off, no drop path)
+    st = meta["g2"]
+    model = golden_model(meta, sd, "xla", "float32", dropout=0.0)
+    batch = golden.step_batch("roberta-base", *st["clip"][1:])
+    golden.check_batch(golden.batch_fingerprint(batch), st["batch"])
+    reset_counters()
+    t1 = time.perf_counter()
+    rec = golden.port_step_record(model, batch, list(g2["step"]["sample_keys"]))
+    step_s = time.perf_counter() - t1
+    got = golden_counts()
+    want = dict(k1=MSDA_PER_CLIP, k1_plain=0, k2=MSDA_PER_CLIP, k2_plain=0, k3=0, k3_plain=0,
+                xla_attn=K3_PER_CLIP)
+    if got != want:
+        raise RuntimeError(f"[golden d] kernel counts {got}, expected {want}")
+    rep = golden.compare_step(rec, g2["step"], golden.STEP_TOL, raise_on_fail=False)
+    log(f"[golden d] training step 1 x {' x '.join(map(str, st['clip'][1:]))} f32: losses "
+        f"{rep['losses']:.3e}, global gradient norm {golden.scalar(rec['grad_norm']):.6f} "
+        f"(JAX {golden.scalar(g2['step']['grad_norm']):.6f}, error {rep['grad_norm']:.3e}), "
+        f"per-key norms "
+        f"up to {rep['key_norms']:.3e} (worst: {rep['worst_keys']}), sampled entries "
+        f"{rep['samples']:.3e}; matcher {rec['assign'].reshape(-1).tolist()} (JAX "
+        f"{g2['step']['assign'].reshape(-1).tolist()}, cost margin {rep['cost_margin']:.4e}); "
+        f"counts {got}; {step_s:.2f} s")
+    golden.compare_step(rec, g2["step"], golden.STEP_TOL)
+    del model
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["counts"][k] for r in runs.values()) for k in ("k1", "k3")}
+    log(f"[golden] {smi}: phase golden passed in {time.perf_counter() - t0:.1f} s "
+        f"(tolerances: f32 {golden.TOL_F32:g} of scale, pixels within {golden.PROB_TOL:g} of "
+        f"the threshold; bf16 {golden.BF16_TOL:g} of scale, pixels where the logit error "
+        f"explains them; step {golden.STEP_TOL:g})")
+    return dict(k1=launches["k1"] + got["k1"], k2=got["k2"], k3=launches["k3"])
+
+
 # ---------------------------------------------------------------- training CLIs
 A2D_TRAIN_SAMPLES, A2D_VAL_SAMPLES = 8, 4  # 4 steps of batch 2; the per-epoch evaluator
 PRETRAIN_SAMPLES, PRETRAIN_VAL_SAMPLES = 16, 4  # 2 steps of batch 8
@@ -1741,6 +1923,80 @@ def a2d_eval_path(smi: str) -> dict:
     log("[a2d-eval] metrics (random weights): " + ", ".join(
         f"{k} {v:.4f}" for k, v in metrics.items()))
     return dict(wall=wall, fwd_ms=fwd_ms, k1=got["k1"])
+
+
+# ---------------------------------------------------------------- several cards
+POOL_VIDEOS = 8
+POOL_SHARED = 4  # engines (host threads) sharing card 0 in phase pool's contention check
+
+
+def pool_path(smi: str) -> dict:
+    """Phase pool: EnginePool over every visible card (the JAX package's
+    multi-device inference, cli/infer_refytb.py:74-81) with the goldens'
+    seeded weights at the main path's settings (bf16, K3), through
+    run_videos_pipelined over POOL_VIDEOS videos of 16 x 360 x 640 (g1's
+    video and the next ones of the same seed), each with g1's expression.
+    Each video's masks must be bit-equal to the same video run alone on card
+    0, and every clip must run 24 K3 and 6 K1 launches, no plain call. Then
+    the same videos through POOL_SHARED engines sharing card 0 (bit-equal
+    too): the host threads' cost without more cards."""
+    meta = golden.load_meta(GOLDEN_DIR)
+    model = golden_model(meta, golden_weights(meta), "pallas", "bfloat16")
+    cards = torch.cuda.device_count()
+    cfg = inference_config("pallas")
+    pool = EnginePool(model, text_encoder_type=cfg.text_encoder_type,
+                      text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),))
+    videos = golden.golden_videos(POOL_VIDEOS, T_CLIP, HEIGHT, WIDTH, meta["g1"]["video_seed"])
+    items = [dict(frames=v, text=meta["g1"]["expression"]) for v in videos]
+
+    def run(target):
+        return run_videos_pipelined(target, items,
+                                    lambda it: dict(frames=it["frames"], texts=[it["text"]]),
+                                    lambda it, res: res[0])
+
+    run(pool)  # warm-up: every engine's first clip (cuDNN, allocator, kernels)
+    for d in pool.devices:
+        torch.cuda.synchronize(d)
+    reset_counters()
+    t0 = time.perf_counter()
+    spread = run(pool)
+    for d in pool.devices:
+        torch.cuda.synchronize(d)
+    pool_s = time.perf_counter() - t0
+    got = golden_counts()
+    want = dict(k1=MSDA_PER_CLIP * POOL_VIDEOS, k1_plain=0, k2=0, k2_plain=0,
+                k3=K3_PER_CLIP * POOL_VIDEOS, k3_plain=0, xla_attn=0)
+    if got != want:
+        raise RuntimeError(f"[pool] kernel counts {got}, expected {want}")
+    t0 = time.perf_counter()
+    alone = run(pool.engines[0])
+    torch.cuda.synchronize(pool.devices[0])
+    one_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(spread, alone)):
+        if a.shape != (T_CLIP, HEIGHT, WIDTH) or not np.array_equal(a, b):
+            raise RuntimeError(f"[pool] video {i} on card {i % cards}: masks differ from card "
+                               f"0's on {float(np.mean(a != b)):.6f} of the pixels")
+    # the same host threads with one card: four engines sharing card 0 (host contention
+    # between the threads shows here without a second card)
+    shared = EnginePool(model, devices=[pool.devices[0]] * POOL_SHARED,
+                        text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
+                        size_buckets=((HEIGHT, WIDTH),))
+    run(shared)  # warm-up
+    torch.cuda.synchronize(pool.devices[0])
+    t0 = time.perf_counter()
+    on_one = run(shared)
+    torch.cuda.synchronize(pool.devices[0])
+    shared_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(on_one, alone)):
+        raise RuntimeError("[pool] engines sharing card 0 gave other masks than one engine")
+    frames = POOL_VIDEOS * T_CLIP
+    log(f"[pool] {smi}: EnginePool of {len(pool.engines)} engines over {cards} card(s): "
+        f"{POOL_VIDEOS} videos x {T_CLIP} frames in {pool_s:.3f} s = {frames / pool_s:.2f} "
+        f"frames/s; card 0 alone {one_s:.3f} s = {frames / one_s:.2f} frames/s "
+        f"({one_s / pool_s:.2f}x); {POOL_SHARED} engines sharing card 0 {shared_s:.3f} s = "
+        f"{frames / shared_s:.2f} frames/s; every video's masks bit-equal to card 0's; counts "
+        f"{got}")
+    return dict(k1=got["k1"], k3=got["k3"], pool_fps=frames / pool_s, one_fps=frames / one_s)
 
 
 # ---------------------------------------------------------------- several ranks
@@ -2273,10 +2529,15 @@ def main(argv) -> int:
             ddp_path(smi, out_dir)
         with tempfile.TemporaryDirectory(prefix="soc_joint_") as out_dir:
             joint_path(smi, out_dir)
+        pool_path(smi)
+        return 0
+    if argv in (["--golden"], ["--pool"]):
+        _build.build_all()
+        (golden_path if argv == ["--golden"] else pool_path)(smi)
         return 0
     if argv:
-        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times, --train-times or "
-              "--multi-rank)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times, --train-times, "
+              "--multi-rank, --golden or --pool)", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -2299,6 +2560,8 @@ def main(argv) -> int:
         f"(swin_attn_impl pallas) beside phase e2e's {e2e['device_fps']:.2f} / "
         f"{e2e['engine_fps']:.2f} frames/s, {e2e['backbone_ms']:.2f} ms; masks differ on "
         f"{e2e_k3['differ']:.6f} of the pixels")
+    gold = golden_path(smi)
+    k3["launches"] += gold["k3"]
     with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
         train = train_path(smi, out_dir)
     with tempfile.TemporaryDirectory(prefix="soc_train_a2d_") as out_dir:
@@ -2307,8 +2570,8 @@ def main(argv) -> int:
         pretrain = pretrain_path(smi, out_dir)
     # the launches of the paths that run each kernel: K1 in inference and in the
     # new training entry points, K2 in every training path
-    k1["launches"] += a2d["k1"] + pretrain["k1"]
-    k2["launches"] = train["bwd_launches"] + a2d["k2"] + pretrain["k2"]
+    k1["launches"] += a2d["k1"] + pretrain["k1"] + gold["k1"]
+    k2["launches"] = train["bwd_launches"] + a2d["k2"] + pretrain["k2"] + gold["k2"]
     small_reference("xla")
     small_reference("pallas")
     small_reference("xla", T=1)

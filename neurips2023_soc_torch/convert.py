@@ -16,7 +16,9 @@ Layout transforms (flax -> torch):
 """
 from __future__ import annotations
 
+import math
 import re
+import zlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -398,4 +400,107 @@ def swin2d_to_backbone(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         if m:
             k = f"downsamples.{m.group(1)}.{m.group(2)}"
         out["backbone.0.body." + k] = v
+    return out
+
+
+# ---------------------------------------------------------------- seeded weights
+# Random weights that two frameworks (and two versions of torch) rebuild
+# identically: every parameter is drawn from numpy's legacy RandomState
+# stream, whose values numpy keeps fixed across releases, seeded from the
+# model seed and the CRC-32 of the parameter's key, so any one key can be made
+# without the others. A rule string names the distribution:
+#   normal:<std>     N(0, std^2)           weights (std 1/sqrt(fan_in)), tables
+#   norm             1 + 0.1 N(0, 1)       norm scales, FrozenBN variances
+#   bias             0.02 N(0, 1)          biases, FrozenBN means
+#   grid:<M>,<L>,<P> the MSDA sampling-offset direction grid (M heads, L
+#                    levels, P points; models.deformable_transformer)
+# The MSDA `sampling_offsets` weight is normal:0.05 over its grid bias: the
+# samples leave the pixel centres where the init's zero weight puts them (the
+# bilinear kinks), and some leave the map, so the zero-pad corners run too.
+# The Swin relative-position tables are normal:1.5, a trained table's spread.
+
+def _grid_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
+    """Direction-grid bias of the sampling offsets (the port's init,
+    reference models/ops/modules/ms_deform_attn.py:63-71), in float64 and
+    rounded to 1e-6: float32 cos and sin differ in their last bit between
+    numpy builds, the rounded directions do not."""
+    thetas = np.arange(n_heads, dtype=np.float64) * (2.0 * math.pi / n_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)
+    grid = np.round(grid / np.abs(grid).max(-1, keepdims=True), 6)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    for i in range(n_points):
+        grid[:, :, i, :] *= i + 1
+    return grid.reshape(-1).astype(np.float32)
+
+
+def param_rules(model: torch.nn.Module) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """{state_dict key: (shape, rule)} for every tensor of `model`'s
+    state_dict, the rule chosen by the module that holds it (see above);
+    raises on a tensor no rule covers."""
+    mods = dict(model.named_modules())
+    rules = {}
+    for key, t in model.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        mod = mods[owner]
+        parent = mods.get(owner.rpartition(".")[0])
+        kind = type(mod).__name__
+        shape = tuple(t.shape)
+        if (owner.endswith("sampling_offsets") and parent is not None
+                and hasattr(parent, "n_points")):
+            rule = ("normal:0.05" if leaf == "weight" else
+                    f"grid:{parent.n_heads},{parent.n_levels},{parent.n_points}")
+        elif leaf == "relative_position_bias_table":
+            rule = "normal:1.5"
+        elif leaf == "level_embed":
+            rule = "normal:1.0"
+        elif kind == "Embedding":
+            rule = f"normal:{float(mod.std)!r}"
+        elif kind in ("LayerNorm", "GroupNorm", "FrozenBN") and leaf in ("weight", "running_var"):
+            rule = "norm"
+        elif leaf in ("bias", "in_proj_bias", "running_mean"):
+            rule = "bias"
+        elif leaf in ("weight", "in_proj_weight") and len(shape) >= 2:
+            rule = f"normal:{math.prod(shape[1:]) ** -0.5!r}"
+        else:
+            raise KeyError(f"no seeded-weight rule for {key} ({kind}, {shape})")
+        rules[key] = (shape, rule)
+    return rules
+
+
+def seeded_array(key: str, shape: Tuple[int, ...], rule: str, seed: int) -> np.ndarray:
+    """One parameter, float32, from RandomState([seed, crc32(key)])."""
+    if rule.startswith("grid:"):
+        out = _grid_bias(*(int(v) for v in rule[5:].split(",")))
+        if out.shape != tuple(shape):
+            raise ValueError(f"{key}: grid {out.shape} for shape {shape}")
+        return out
+    rng = np.random.RandomState([seed, zlib.crc32(key.encode())])
+    z = rng.standard_normal(shape)
+    if rule == "norm":
+        z = 1.0 + 0.1 * z
+    elif rule == "bias":
+        z = 0.02 * z
+    elif rule.startswith("normal:"):
+        z = float(rule[7:]) * z
+    else:
+        raise ValueError(f"unknown rule {rule!r} for {key}")
+    return z.astype(np.float32)
+
+
+def seeded_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]:
+    """numpy state_dict of `model` from `seed`, the same bytes on any
+    machine; loads with strict=True."""
+    return {k: seeded_array(k, shape, rule, seed)
+            for k, (shape, rule) in param_rules(model).items()}
+
+
+def weights_fingerprint(sd: Mapping[str, Any]) -> Dict[str, list]:
+    """{key: [sum, sum of squares, first 4 values]} in float64 per tensor
+    (numpy or torch), to tell different weights from a fault downstream."""
+    out = {}
+    for k in sorted(sd):
+        v = sd[k]
+        a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+        a = a.astype(np.float64).reshape(-1)
+        out[k] = [float(a.sum()), float(np.square(a).sum())] + [float(x) for x in a[:4]]
     return out

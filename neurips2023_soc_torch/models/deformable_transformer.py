@@ -42,9 +42,12 @@ def _offset_grid_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _wh_normalizer(spatial_shapes: SpatialShapes, device: torch.device) -> torch.Tensor:
     """(L, 2) xy sizes of the levels, made once per geometry and device so
-    the forward uploads nothing."""
-    return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
-                        device=device)
+    the forward uploads nothing; made outside inference mode, whatever mode
+    the first caller runs in (an inference tensor cannot be saved for a later
+    backward)."""
+    with torch.inference_mode(False):
+        return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                            device=device)
 
 
 class MSDeformAttnModule(nn.Module):

@@ -59,7 +59,10 @@ def _np_window_region_ids(Dp: int, Hp: int, Wp: int, window: Window,
 @functools.lru_cache(maxsize=64)
 def _region_ids(Dp: int, Hp: int, Wp: int, window: Window, shift: Window,
                 device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_np_window_region_ids(Dp, Hp, Wp, window, shift)).to(device)
+    # a cached tensor is made outside inference mode, whatever mode the first
+    # caller runs in: an inference tensor cannot be saved for a later backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_np_window_region_ids(Dp, Hp, Wp, window, shift)).to(device)
 
 
 def _attn_mask(Dp: int, Hp: int, Wp: int, window: Window, shift: Window,
@@ -91,7 +94,8 @@ def _rel_pos_index(window: Window, N: int, device: torch.device) -> torch.Tensor
     """Flat (N*N,) table rows; a clamped window uses the full window's index
     [:N, :N], as the reference does."""
     idx = _np_rel_pos_index(window)[:N, :N]
-    return torch.from_numpy(np.ascontiguousarray(idx).reshape(-1)).to(device)
+    with torch.inference_mode(False):  # cached: see _region_ids
+        return torch.from_numpy(np.ascontiguousarray(idx).reshape(-1)).to(device)
 
 
 def _effective_window(size: Tuple[int, int, int], window: Window, shift: Window):

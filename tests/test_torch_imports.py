@@ -37,6 +37,7 @@ NEW_IN_SLICE_6 = ("evaluation", "evaluation.rle", "evaluation.coco_eval",
 TRAINING_ENTRY_POINTS = ("cli.main", "cli.main_pretrain", "cli.main_joint", "data.sampler",
                   "data.jhmdb_sentences")
 MULTI_RANK_AND_RESNET = ("parallel.zero", "models.resnet")
+FULL_WIDTH_GOLDEN = ("golden",)
 
 
 def test_fresh_import_loads_no_jax():
@@ -46,7 +47,8 @@ def test_fresh_import_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     loaded = out.stdout.split("PORT", 1)[1]
-    for name in NEW_IN_SLICE_3 + NEW_IN_SLICE_6 + TRAINING_ENTRY_POINTS + MULTI_RANK_AND_RESNET:
+    for name in (NEW_IN_SLICE_3 + NEW_IN_SLICE_6 + TRAINING_ENTRY_POINTS + MULTI_RANK_AND_RESNET
+                 + FULL_WIDTH_GOLDEN):
         assert f"'neurips2023_soc_torch.{name}'" in loaded, name
 
 
