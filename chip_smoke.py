@@ -64,7 +64,11 @@ prints no result):
                probabilities; one torch.profiler pass over the backbone
                (device time by kernel); then each of one clip's 24 K3 calls
                (two bf16 ulps of scale) and 6 K1 calls (K1's bf16 tolerance)
-               held against the plain version in f32 on the same inputs.
+               held against the plain version in f32 on the same inputs;
+               then EnginePool's worker processes: 2 workers sharing the
+               card run 4 more videos, each video's masks bit-equal to one
+               engine's, exactly 24 K3 and 6 K1
+               launches per clip counted over the processes.
      golden  — the port against the JAX package's golden outputs at full width
                (tests/torch_golden, made on the CPU by make_golden.py): the
                Video-Swin-B SOC above with the goldens' seeded weights
@@ -140,7 +144,8 @@ prints no result):
                forward's 6 K1 calls held against the plain version in f32, and
                a2d_device_step on the card against the CPU on one forward's
                outputs (scores within 1e-6, masks equal on at least 99.99 % of
-               the pixels).
+               the pixels); the host time of evaluation/rle.py:encode inside
+               the evaluator is reported apart.
   9. ddp     — several ranks (torch.multiprocessing spawn), through the port's
                initialize_distributed (config keys num_processes, process_id,
                coordinator_address, dist_backend) and Trainer: one rank per
@@ -180,20 +185,30 @@ prints no result):
                convolutions move, their gradients non-zero and inside the
                step's grad_norm (recomputed from the gradients the optimizer is
                handed), one step's K1/K2 calls checked.
+ 12. bench   — bench_torch.py as a subprocess at small counts (BENCH_ITERS=3,
+               BENCH_VIDEOS=3, BENCH_TRAIN_ITERS=2): its JSON line names this
+               card, every number in it is finite and positive, and each
+               block made exactly the K1, K2 and K3 launches of its clips and
+               steps.
 Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
 path's shapes, `--train-times` only runs phase train (a copy of this
 script in an older checkout runs that checkout's code: an A/B in one chip
 call), `--multi-rank` only runs phases ddp, joint and pool (for a machine of
 several cards), `--golden` only phase golden, and `--pool` only phase pool:
-EnginePool over every visible card with the goldens' weights (bf16, K3) on 8
-videos of 16 x 360 x 640, each video's masks bit-equal to card 0's alone, then
-four engines sharing card 0. The second-to-last lines are the card's name/power
-limit and a JSON object of the kernels; the last line is {"ok": true, "device":
+EnginePool (a worker process per card, fed by this process) over every
+visible card with the goldens' weights (bf16, K3) on 16 videos of 16 x 360 x
+640, each video's masks bit-equal to card 0's alone, then two and four
+worker processes sharing card 0, and the host time of one clip's dispatch
+with one engine, four threads and four processes sharing card 0. The
+second-to-last lines are the card's name/power limit and a JSON object of the
+kernels; the last line is {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
 import importlib
 import json
@@ -1047,8 +1062,54 @@ def k3_path(e2e: dict) -> dict:
         f"{max(ratios):.3f} of the two-ulp tolerance against the plain version in f32; K1 on "
         f"its {len(k1_ratios)} inputs: error / tolerance "
         f"{', '.join(f'{r:.3f}' for r in k1_ratios)}")
+    pool_check(engine, cfg)
     return dict(launches=got["k3"], k1_launches=got["k1"], engine_fps=engine_fps,
                 differ=differ, **timings)
+
+
+POOL_CHECK_VIDEOS, POOL_CHECK_WORKERS = 4, 2
+
+
+def run_clips(target, items) -> list:
+    """Each item's masks through run_videos_pipelined (an engine or a pool)."""
+    return run_videos_pipelined(target, items,
+                                lambda it: dict(frames=it["frames"], texts=[it["text"]]),
+                                lambda it, res: res[0])
+
+
+def pool_check(engine, cfg) -> None:
+    """The default run's check of EnginePool's worker processes on one card:
+    POOL_CHECK_WORKERS workers sharing card 0 with copies of `engine`'s model,
+    POOL_CHECK_VIDEOS videos: each video's masks bit-equal to `engine`'s
+    alone, and exactly 24 K3 and 6 K1 launches per clip counted over the
+    processes, no plain call."""
+    rng = np.random.RandomState(3)
+    videos = [rng.randint(0, 256, (T_CLIP, HEIGHT, WIDTH, 3)).astype(np.uint8)
+              for _ in range(POOL_CHECK_VIDEOS)]
+    items = [dict(frames=v, text=f"the object number {i}") for i, v in enumerate(videos)]
+    alone = run_clips(engine, items)
+    t0 = time.perf_counter()
+    with EnginePool(engine.model, devices=[engine.device] * POOL_CHECK_WORKERS,
+                    text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
+                    size_buckets=((HEIGHT, WIDTH),)) as pool:
+        started = time.perf_counter() - t0
+        reset_counters()
+        t0 = time.perf_counter()
+        got = run_clips(pool, items)
+        wall = time.perf_counter() - t0
+        counts = golden_counts()
+    want = dict(k1=MSDA_PER_CLIP * POOL_CHECK_VIDEOS, k1_plain=0, k2=0, k2_plain=0,
+                k3=K3_PER_CLIP * POOL_CHECK_VIDEOS, k3_plain=0, xla_attn=0)
+    if counts != want:
+        raise RuntimeError(f"[pool-check] kernel counts {counts}, expected {want}")
+    for i, (a, b) in enumerate(zip(got, alone)):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"[pool-check] video {i}: masks differ from one engine's on "
+                               f"{float(np.mean(a != b)):.6f} of the pixels")
+    log(f"[pool-check] EnginePool of {POOL_CHECK_WORKERS} worker processes on card 0 (started "
+        f"in {started:.1f} s): {POOL_CHECK_VIDEOS} videos in {wall:.3f} s, "
+        f"the first clip of each worker cold; every video's masks bit-equal to one engine's; "
+        f"counts {counts}")
 
 
 def profile_backbone(model, video, tag: str, top: int = 12) -> None:
@@ -1840,6 +1901,36 @@ def davis_path(smi: str) -> dict:
     return dict(wall=wall, fps=DAVIS_T / wall, peak=peak, k3=got["k3"], k1=got["k1"])
 
 
+@contextlib.contextmanager
+def timed_rle_encode():
+    """Yields two lists that gather the host seconds of every
+    evaluation/rle.py:encode call made inside the block (the A2D evaluator's
+    ground truth and its predictions, on whichever thread runs them) and of
+    the run counting inside them (the C++ run counter)."""
+    import neurips2023_soc_torch.evaluation.rle as rle
+    import neurips2023_soc_torch.evaluators as evaluators
+
+    encode, counts = rle.encode, rle._counts_from_mask
+    seconds = ([], [])
+
+    def timer(fn, out):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                out.append(time.perf_counter() - t0)
+        return timed
+
+    rle.encode = evaluators.rle_encode = timer(encode, seconds[0])
+    rle._counts_from_mask = timer(counts, seconds[1])
+    try:
+        yield seconds
+    finally:
+        rle.encode = evaluators.rle_encode = encode
+        rle._counts_from_mask = counts
+
+
 def a2d_eval_path(smi: str) -> dict:
     """The A2D-Sentences evaluator at configs/a2d_sentences.yaml's widths:
     build_a2d_evaluator over 8 centre-frame-annotated synthetic samples of 8 x
@@ -1874,10 +1965,11 @@ def a2d_eval_path(smi: str) -> dict:
         f"x {w}, eval batch {bs}")
 
     reset_counters()
-    t0 = time.perf_counter()
-    metrics = evaluate(model, 0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with timed_rle_encode() as (rle_s, runs_s):
+        t0 = time.perf_counter()
+        metrics = evaluate(model, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     forwards = -(-A2D_SAMPLES // bs)
     got = dict(k1=ms_deform_attn.launches, k1_plain=ms_deform_attn.plain_calls,
                k3=window_attention.launches, xla_attn=window_attention_torch.calls)
@@ -1920,83 +2012,136 @@ def a2d_eval_path(smi: str) -> dict:
         f"{wall / A2D_SAMPLES * 1e3:.2f} ms per sample; forward {fwd_ms:.2f} ms (CUDA events, "
         f"batch {bs}); counts {got}; a2d_device_step card vs CPU: scores {score_err:.3e}, "
         f"masks agree on {agree:.6f} of {card[1].numel()} pixels")
+    log(f"[a2d-eval] {smi}: evaluation/rle.py:encode {len(rle_s)} calls, "
+        f"{sum(rle_s) * 1e3:.2f} ms in all = {sum(rle_s) / A2D_SAMPLES * 1e3:.3f} ms per sample, "
+        f"{sum(rle_s) / wall:.2%} of the evaluator's ms per sample (host clock); of it the C++ "
+        f"run counter {sum(runs_s) * 1e3:.2f} ms, the rest the LEB128 string")
     log("[a2d-eval] metrics (random weights): " + ", ".join(
         f"{k} {v:.4f}" for k, v in metrics.items()))
     return dict(wall=wall, fwd_ms=fwd_ms, k1=got["k1"])
 
 
 # ---------------------------------------------------------------- several cards
-POOL_VIDEOS = 8
-POOL_SHARED = 4  # engines (host threads) sharing card 0 in phase pool's contention check
+POOL_VIDEOS = 16
+POOL_SHARED = 4  # engines sharing card 0 in phase pool's contention checks
+
+
+def dispatch_ms(engine, item) -> float:
+    """Host milliseconds of one clip's InferenceEngine._dispatch_video (its
+    launches; the device's work is not waited for), then waits for the clip.
+    Module-level so that EnginePool's worker processes can run it."""
+    t0 = time.perf_counter()
+    handle = engine._dispatch_video(**item)
+    ms = (time.perf_counter() - t0) * 1e3
+    engine._collect_video(handle)
+    return ms
+
+
+def dispatch_timings(model, items, engine_kwargs: dict) -> dict:
+    """Host ms of _dispatch_video per clip over `items` (the median, min and
+    max) on card 0 with: one engine alone; POOL_SHARED engines on as many
+    threads of this process (the pool's design before worker processes); and
+    POOL_SHARED engines in as many processes (EnginePool). Every engine warms
+    up on one clip first."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    card0 = torch.device("cuda", 0)
+
+    def stats(ms):
+        return dict(median=statistics.median(ms), min=min(ms), max=max(ms))
+
+    alone = InferenceEngine(model, device=card0, **engine_kwargs)
+    dispatch_ms(alone, items[0])
+    one = [dispatch_ms(alone, it) for it in items]
+    engines = [alone] + [InferenceEngine(copy.deepcopy(model), device=card0, **engine_kwargs)
+                         for _ in range(POOL_SHARED - 1)]
+    for eng in engines[1:]:
+        dispatch_ms(eng, items[0])
+    threaded = [[] for _ in engines]
+
+    def thread(e: int) -> None:
+        with torch.cuda.device(card0):
+            threaded[e] = [dispatch_ms(engines[e], it) for it in items[e::POOL_SHARED]]
+
+    with ThreadPoolExecutor(POOL_SHARED) as ex:
+        list(ex.map(thread, range(POOL_SHARED)))
+    del engines
+    with EnginePool(model, devices=[card0] * POOL_SHARED, **engine_kwargs) as pool:
+        pool.map_videos(items[:POOL_SHARED], dispatch_ms)
+        procs = pool.map_videos(items, dispatch_ms)
+    return dict(alone=stats(one), threads=stats(sum(threaded, [])), processes=stats(procs))
 
 
 def pool_path(smi: str) -> dict:
     """Phase pool: EnginePool over every visible card (the JAX package's
-    multi-device inference, cli/infer_refytb.py:74-81) with the goldens'
+    multi-device inference, cli/infer_refytb.py:74-81; here a worker process
+    per card, fed by this process, or one engine here on one card) with the goldens'
     seeded weights at the main path's settings (bf16, K3), through
     run_videos_pipelined over POOL_VIDEOS videos of 16 x 360 x 640 (g1's
     video and the next ones of the same seed), each with g1's expression.
     Each video's masks must be bit-equal to the same video run alone on card
-    0, and every clip must run 24 K3 and 6 K1 launches, no plain call. Then
-    the same videos through POOL_SHARED engines sharing card 0 (bit-equal
-    too): the host threads' cost without more cards."""
+    0, and every clip must run 24 K3 and 6 K1 launches, counted over the
+    processes, no plain call. Then the same videos through POOL_SHARED engines
+    sharing card 0 (2 and POOL_SHARED worker processes; bit-equal and exact
+    counts too), and the host time of one clip's dispatch with one
+    engine, POOL_SHARED threads and POOL_SHARED processes sharing card 0."""
     meta = golden.load_meta(GOLDEN_DIR)
     model = golden_model(meta, golden_weights(meta), "pallas", "bfloat16")
     cards = torch.cuda.device_count()
     cfg = inference_config("pallas")
-    pool = EnginePool(model, text_encoder_type=cfg.text_encoder_type,
-                      text_bucket=cfg.text_bucket, size_buckets=((HEIGHT, WIDTH),))
+    kw = dict(text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
+              size_buckets=((HEIGHT, WIDTH),))
     videos = golden.golden_videos(POOL_VIDEOS, T_CLIP, HEIGHT, WIDTH, meta["g1"]["video_seed"])
     items = [dict(frames=v, text=meta["g1"]["expression"]) for v in videos]
-
-    def run(target):
-        return run_videos_pipelined(target, items,
-                                    lambda it: dict(frames=it["frames"], texts=[it["text"]]),
-                                    lambda it, res: res[0])
-
-    run(pool)  # warm-up: every engine's first clip (cuDNN, allocator, kernels)
-    for d in pool.devices:
-        torch.cuda.synchronize(d)
-    reset_counters()
-    t0 = time.perf_counter()
-    spread = run(pool)
-    for d in pool.devices:
-        torch.cuda.synchronize(d)
-    pool_s = time.perf_counter() - t0
-    got = golden_counts()
     want = dict(k1=MSDA_PER_CLIP * POOL_VIDEOS, k1_plain=0, k2=0, k2_plain=0,
                 k3=K3_PER_CLIP * POOL_VIDEOS, k3_plain=0, xla_attn=0)
-    if got != want:
-        raise RuntimeError(f"[pool] kernel counts {got}, expected {want}")
-    t0 = time.perf_counter()
-    alone = run(pool.engines[0])
-    torch.cuda.synchronize(pool.devices[0])
-    one_s = time.perf_counter() - t0
+
+    def timed(target, tag: str):
+        run_clips(target, items)  # warm-up: every engine's first clip
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = run_clips(target, items)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = golden_counts()
+        if got != want:
+            raise RuntimeError(f"[pool] {tag}: kernel counts {got}, expected {want}")
+        return out, seconds
+
+    with EnginePool(model, **kw) as pool:
+        spread, pool_s = timed(pool, f"{len(pool.engines)} engines over {cards} card(s)")
+        n_engines = len(pool.engines)
+    alone, one_s = timed(InferenceEngine(model, **kw), "card 0 alone")
     for i, (a, b) in enumerate(zip(spread, alone)):
         if a.shape != (T_CLIP, HEIGHT, WIDTH) or not np.array_equal(a, b):
             raise RuntimeError(f"[pool] video {i} on card {i % cards}: masks differ from card "
                                f"0's on {float(np.mean(a != b)):.6f} of the pixels")
-    # the same host threads with one card: four engines sharing card 0 (host contention
-    # between the threads shows here without a second card)
-    shared = EnginePool(model, devices=[pool.devices[0]] * POOL_SHARED,
-                        text_encoder_type=cfg.text_encoder_type, text_bucket=cfg.text_bucket,
-                        size_buckets=((HEIGHT, WIDTH),))
-    run(shared)  # warm-up
-    torch.cuda.synchronize(pool.devices[0])
-    t0 = time.perf_counter()
-    on_one = run(shared)
-    torch.cuda.synchronize(pool.devices[0])
-    shared_s = time.perf_counter() - t0
-    if not all(np.array_equal(a, b) for a, b in zip(on_one, alone)):
-        raise RuntimeError("[pool] engines sharing card 0 gave other masks than one engine")
+    shared_s = {}
+    for n in (2, POOL_SHARED):
+        with EnginePool(model, devices=[torch.device("cuda", 0)] * n, **kw) as shared:
+            on_one, shared_s[n] = timed(shared, f"{n} engines sharing card 0")
+        if not all(np.array_equal(a, b) for a, b in zip(on_one, alone)):
+            raise RuntimeError(f"[pool] {n} engines sharing card 0 gave other masks than one "
+                               "engine")
+    dispatch = dispatch_timings(model, [dict(frames=it["frames"], texts=[it["text"]])
+                                        for it in items], kw)
     frames = POOL_VIDEOS * T_CLIP
-    log(f"[pool] {smi}: EnginePool of {len(pool.engines)} engines over {cards} card(s): "
+    log(f"[pool] {smi}: EnginePool of {n_engines} engines over {cards} card(s): "
         f"{POOL_VIDEOS} videos x {T_CLIP} frames in {pool_s:.3f} s = {frames / pool_s:.2f} "
         f"frames/s; card 0 alone {one_s:.3f} s = {frames / one_s:.2f} frames/s "
-        f"({one_s / pool_s:.2f}x); {POOL_SHARED} engines sharing card 0 {shared_s:.3f} s = "
-        f"{frames / shared_s:.2f} frames/s; every video's masks bit-equal to card 0's; counts "
-        f"{got}")
-    return dict(k1=got["k1"], k3=got["k3"], pool_fps=frames / pool_s, one_fps=frames / one_s)
+        f"({one_s / pool_s:.2f}x); " + "; ".join(
+            f"{n} engines in {n} processes sharing card 0 {t:.3f} s = {frames / t:.2f} frames/s "
+            f"({one_s / t:.2f}x one engine)" for n, t in shared_s.items())
+        + f"; every video's masks bit-equal to card 0's; counts exact "
+        f"({want['k3']} K3, {want['k1']} K1 per run)")
+    log(f"[pool] {smi}: host ms of one clip's _dispatch_video on card 0 (median, min-max over "
+        f"{POOL_VIDEOS} clips): one engine " + "; ".join(
+            f"{tag} {d['median']:.2f} ({d['min']:.2f}-{d['max']:.2f})" for tag, d in (
+                ("alone", dispatch["alone"]), (f"{POOL_SHARED} threads", dispatch["threads"]),
+                (f"{POOL_SHARED} processes", dispatch["processes"]))))
+    return dict(k1=want["k1"], k3=want["k3"], pool_fps=frames / pool_s, one_fps=frames / one_s,
+                shared_fps={n: frames / t for n, t in shared_s.items()}, dispatch=dispatch)
 
 
 # ---------------------------------------------------------------- several ranks
@@ -2469,6 +2614,88 @@ def resnet_path(smi: str, out_dir: str) -> dict:
                 device_fps=timings["device_fps"], step_ms=step_ms)
 
 
+BENCH_SMOKE = dict(BENCH_ITERS=3, BENCH_VIDEOS=3, BENCH_TRAIN_ITERS=2)
+
+
+def bench_launches(record: dict) -> dict:
+    """The kernel launches bench_torch.py's blocks must have made at the
+    BENCH_SMOKE counts: K1 6 per clip and per expression (K2 6 per training
+    step), K3 24 per Video-Swin-B clip and 12 per Video-Swin-T clip with
+    `pallas`, none in training."""
+    it, n = BENCH_SMOKE["BENCH_ITERS"], BENCH_SMOKE["BENCH_VIDEOS"]
+    steps = 2 + BENCH_SMOKE["BENCH_TRAIN_ITERS"]
+
+    def clips(kind: str, videos: int = n) -> int:
+        return 2 + it + 3 * (it if kind == "device" else videos)
+
+    want = {}
+    for attn, blocks in record["inference"].items():
+        for kind in blocks:
+            c = clips(kind)
+            want[f"inference.{attn}.{kind}"] = dict(
+                k1=MSDA_PER_CLIP * c, k2=0, k3=K3_PER_CLIP * c if attn == "pallas" else 0)
+    for kind in record["secondary"]["video-swin-t"]:
+        c = clips(kind)
+        want[f"secondary.video-swin-t.{kind}"] = dict(k1=MSDA_PER_CLIP * c, k2=0,
+                                                      k3=K3_PER_PASS_T * c)
+    c = clips("multi", max(3, n // 2))
+    want["multi_expression"] = dict(k1=MSDA_PER_CLIP * 8 * c, k2=0, k3=K3_PER_CLIP * c)
+    for backbone in ("video-swin-t", "video-swin-b"):
+        want[f"train.{backbone}"] = dict(k1=MSDA_PER_CLIP * steps, k2=MSDA_PER_CLIP * steps, k3=0)
+    return want
+
+
+def bench_smoke(smi: str) -> dict:
+    """bench_torch.py once as a subprocess at the BENCH_SMOKE counts: its last
+    line must be one JSON object naming this card, every number in it finite
+    and positive, and each block's kernel launches those of bench_launches."""
+    import os
+
+    env = dict(os.environ, **{k: str(v) for k, v in BENCH_SMOKE.items()})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"[bench] bench_torch.py exited {out.returncode}:\n"
+                           f"{out.stderr[-4000:]}")
+    record = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = []
+
+    def walk(obj, path: str) -> None:
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                if k != "launches":
+                    walk(v, f"{path}.{k}" if path else k)
+        elif isinstance(obj, list):
+            for i, v in enumerate(obj):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+            if not (math.isfinite(obj) and obj > 0):
+                bad.append((path, obj))
+
+    walk(record, "")
+    if bad or record["card"] != smi:
+        raise RuntimeError(f"[bench] numbers not finite and positive: {bad}; card "
+                           f"{record['card']!r}")
+    for path, want in bench_launches(record).items():
+        block = record
+        for key in path.split("."):
+            block = block[key]
+        if block["launches"] != want:
+            raise RuntimeError(f"[bench] {path}: launches {block['launches']}, expected {want}")
+    b = record["inference"]
+    log(f"[bench] {smi}: bench_torch.py at {BENCH_SMOKE} in {seconds:.1f} s (its own "
+        f"{record['seconds']:.1f} s): Swin-B engine u8 pipelined K3 "
+        f"{b['pallas']['engine_u8']['pipelined_fps']['median']:.2f} / xla "
+        f"{b['xla']['engine_u8']['pipelined_fps']['median']:.2f} frames/s, device pipelined K3 "
+        f"{b['pallas']['device']['pipelined_fps']['median']:.2f}; train step Swin-T / Swin-B "
+        f"{record['train']['video-swin-t']['step_ms']['median']:.1f} / "
+        f"{record['train']['video-swin-b']['step_ms']['median']:.1f} ms; every number finite "
+        f"and positive, every block's launches exact (smoke counts: not a reading)")
+    return record
+
+
 def small_reference(attn_impl: str, T: int = 4) -> None:
     """A small float32 SOC on the card against the same weights on the CPU
     (plain versions: window_attention_torch for xla, window_attention_ref
@@ -2586,6 +2813,8 @@ def main(argv) -> int:
     for path in (ddp, joint, resnet):
         k1["launches"] += path["k1"]
         k2["launches"] += path["k2"]
+    torch.cuda.empty_cache()
+    bench_smoke(smi)
 
     log(smi)
     keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",

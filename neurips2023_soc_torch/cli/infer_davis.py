@@ -30,8 +30,9 @@ import numpy as np
 from ..config import add_config_args, config_from_args
 from ..data.davis import ReferDAVISDataset
 from ..device import resolve_device
-from ..inference import (eval_size_buckets, group_davis_annotator_order, merge_davis_annotator,
-                         run_videos_pipelined, save_davis_annotator_masks, shard_videos)
+from ..inference import (EnginePool, eval_size_buckets, group_davis_annotator_order,
+                         merge_davis_annotator, run_videos_pipelined,
+                         save_davis_annotator_masks, shard_videos)
 from ..models import build_model
 from ..parallel import initialize_distributed
 from .infer_refytb import add_device_arg, build_engine, load_params
@@ -124,8 +125,12 @@ def main(argv=None) -> Path:
     out_root = Path(config.get("output_dir") or "outputs/davis_valid")
     frames_dir = (Path(config.img_folder) / "valid" / "JPEGImages"
                   if config.get("visualize") else None)
-    run_videos_pipelined(engine, davis_videos(dataset), functools.partial(item_fn, dataset),
-                         functools.partial(post_fn, out_root, frames_dir, time.time()))
+    try:
+        run_videos_pipelined(engine, davis_videos(dataset), functools.partial(item_fn, dataset),
+                             functools.partial(post_fn, out_root, frames_dir, time.time()))
+    finally:
+        if isinstance(engine, EnginePool):
+            engine.close()
     return out_root
 
 

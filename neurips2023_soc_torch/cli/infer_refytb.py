@@ -54,8 +54,9 @@ def add_device_arg(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def build_engine(config, model, device: torch.device, size_buckets,
                  time_buckets_key: str = "time_buckets"):
     """One engine on `device`, or an EnginePool over every visible card when
-    this single process sees more than one. The engine's time buckets are
-    the config's `time_buckets_key` entry (the engine's default when unset)."""
+    this single process sees more than one (a worker process per card; close
+    it when done). The engine's time buckets are the config's
+    `time_buckets_key` entry (the engine's default when unset)."""
     kwargs = dict(text_encoder_type=config.text_encoder_type,
                   text_bucket=config.get("text_bucket", 32),
                   time_buckets=config.get(time_buckets_key), size_buckets=size_buckets,
@@ -102,8 +103,12 @@ def main(argv=None):
             visualize_dir=osp.join(out_dir, "valid_images"),  # reference infer_refytb.py:61
             frame_path_fn=lambda vid, frame: osp.join(
                 config.img_folder, "valid", "JPEGImages", vid, frame + ".jpg"))
-    result = evaluate_refer_youtube_vos(engine, dataset, out_dir, groups=groups,
-                                        **vis_kwargs)
+    try:
+        result = evaluate_refer_youtube_vos(engine, dataset, out_dir, groups=groups,
+                                            **vis_kwargs)
+    finally:
+        if isinstance(engine, EnginePool):
+            engine.close()
     print(f"done in {time.time() - t0:.1f}s -> {result}")
     return result
 

@@ -1,18 +1,46 @@
-"""COCO run-length encoding in numpy (the port's copy of
+"""COCO run-length encoding (the port's copy of
 neurips2023_soc_tpu/evaluation/rle.py): column-major runs starting with a
 0-run, written as pycocotools' LEB128-style string, byte for byte what
-pycocotools' `encode` gives. The JAX package's optional C++ run counter
-(native/rle.cpp) is not ported: the numpy runs are the same."""
+pycocotools' `encode` gives. The runs are counted by the C++ run counter
+`csrc/rle_counts.cpp` (the counterpart of the JAX package's optional
+native/rle.cpp), built with the host C++ compiler at its first use;
+`counts_numpy` is its plain version."""
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, List
 
 import numpy as np
 
 
+@functools.lru_cache(maxsize=None)
+def _native_counts():
+    """The C entry point rle_counts(data, n, runs) -> number of runs."""
+    from ..ops import _build
+
+    fn = _build.load("rle_counts").rle_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def _flat(mask: np.ndarray) -> np.ndarray:
+    return np.asfortranarray(mask.astype(np.uint8)).reshape(-1, order="F")
+
+
 def _counts_from_mask(mask: np.ndarray) -> np.ndarray:
     """Column-major (Fortran) run lengths, starting with a 0-run."""
-    flat = np.asfortranarray(mask.astype(np.uint8)).reshape(-1, order="F")
+    flat = np.ascontiguousarray(_flat(mask))
+    if flat.size == 0:
+        return np.zeros(0, np.int64)
+    runs = np.empty(flat.size + 1, np.int64)
+    return runs[:_native_counts()(flat.ctypes.data, flat.size, runs.ctypes.data)]
+
+
+def counts_numpy(mask: np.ndarray) -> np.ndarray:
+    """The plain version of the run counter, in numpy."""
+    flat = _flat(mask)
     if flat.size == 0:
         return np.zeros(0, np.int64)
     change = np.nonzero(np.diff(flat))[0]

@@ -326,8 +326,8 @@ def build_ytvos_evaluator(model: torch.nn.Module, config, dataset=None) -> Calla
     server computes J&F (the reference returns {} there).
 
     One engine on the model's device, or an EnginePool over every visible
-    card when this single process sees more than one (the other cards'
-    replicas take the model's weights every epoch). With several processes
+    card when this single process sees more than one (a worker process per
+    card, whose replica takes the model's weights once per epoch). With several processes
     the video groups are split between them; output_dir must then be shared,
     since rank 0 zips every process's PNGs."""
     import shutil

@@ -27,17 +27,18 @@ host first, half the upload). Probabilities can travel as float32, bfloat16
 or uint8 (`probs_dtype`) and are float32 in [0, 1] for the caller.
 
 Several cards: `EnginePool` holds one engine per CUDA device, each with its
-own replica of the model, and `run_videos_pipelined` feeds them from one
-thread each; `shard_videos` splits a video list over the processes of a
-torch.distributed run.
+own replica of the model in a worker process of its own, and
+`run_videos_pipelined` feeds them from the calling process; `shard_videos`
+splits a video list over the processes of a torch.distributed run.
 """
 from __future__ import annotations
 
 import copy
+import queue
+import traceback
 import zipfile
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -455,15 +456,30 @@ def _cxcywh_to_xyxy_pixels(boxes: np.ndarray, oh: int, ow: int) -> np.ndarray:
 
 
 class EnginePool:
-    """One InferenceEngine per CUDA device, each with its own replica of the
-    model on its device; videos are fanned out over one host thread per
-    engine. `devices=None` means every visible card. The first engine on the
-    device the model already lives on runs `model` itself (as one
-    InferenceEngine does), so that card holds one copy of the weights; every
-    other engine runs a deep copy. The JAX package's `_local_replica`
-    (pulling the local shard out of parameters replicated over several hosts)
-    has no counterpart: a torch model lives in one process, and its replicas
-    are copies."""
+    """One InferenceEngine per device, each with its own replica of the model.
+    `devices=None` means every visible card; `[card0] * 4` puts four engines
+    on one card. A pool of one engine is that engine alone, in this process,
+    on `model` itself when the model already lives on that device (a deep
+    copy otherwise). A pool of several runs every engine in a worker process
+    of its own (started with `spawn`: CUDA forbids fork once it is
+    initialised), on a copy of the model made there, and this process only
+    feeds them: an engine queues thousands of small kernel launches per clip
+    from Python, so engines on threads of one process contend for the
+    interpreter lock (four cards ran at a quarter of one card's rate), and an
+    engine left in this process would hold back the feeding of the others.
+
+    What runs where: `run_videos_pipelined`'s item_fn and post_fn run in this
+    process, and a worker runs only `infer_video_multi` on its engine (or
+    `map_videos`'s fn). Frames and results cross as tensors in shared memory.
+    A worker's kernel launch counts are added to this process's counters
+    after each call. A worker that fails to start or to run, or dies, makes
+    the call raise here with its traceback and closes the pool; nothing falls
+    back to threads or to the CPU. `close()` (or leaving a `with` block) ends
+    the workers; they also end with this process. The CUDA kernels are built
+    here before the workers start, so that workers only load them. The JAX
+    package's `_local_replica` (pulling the local shard out of parameters
+    replicated over several hosts) has no counterpart: a torch model lives in
+    one process, and its replicas are copies."""
 
     def __init__(self, model: torch.nn.Module, devices=None, **engine_kwargs):
         if devices is None:
@@ -473,37 +489,77 @@ class EnginePool:
         if not self.devices:
             raise ValueError("EnginePool needs at least one device")
         self._params_src = None
-        home = next(model.parameters()).device
-        own = next((i for i, d in enumerate(self.devices) if _same_device(d, home)), None)
-        self.engines = [InferenceEngine(model if i == own else copy.deepcopy(model),
-                                        device=d, **engine_kwargs)
-                        for i, d in enumerate(self.devices)]
+        self._local: Optional[InferenceEngine] = None  # the engine of a pool of one
+        self.engines: List[Union[InferenceEngine, _EngineWorker]] = []
+        if len(self.devices) == 1:
+            own = _same_device(self.devices[0], next(model.parameters()).device)
+            self._local = InferenceEngine(model if own else copy.deepcopy(model),
+                                          device=self.devices[0], **engine_kwargs)
+            self.engines.append(self._local)
+            return
+        if any(d.type == "cuda" for d in self.devices):
+            from .ops import _build
+
+            _build.build_all()
+        # this process's share of torch's CPU threads, split between the workers:
+        # more threads than cores stall every worker on the CPU
+        threads = max(1, torch.get_num_threads() // len(self.devices))
+        with self._closing_on_error():
+            for d in self.devices:
+                self.engines.append(_EngineWorker(model, d, engine_kwargs, threads))
+            for w in self.engines:
+                w.recv()  # "ready"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        """End the worker processes (idempotent)."""
+        for eng in self.engines:
+            if isinstance(eng, _EngineWorker):
+                eng.close()
 
     def update_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load `state_dict` (e.g. the trainer's current weights) into every
-        replica, strictly; a no-op when it is the very object loaded last."""
+        replica, strictly: one transfer per worker; a no-op when it is the very
+        object loaded last."""
         if state_dict is self._params_src:
             return
         self._params_src = state_dict
-        for eng in self.engines:
-            eng.model.load_state_dict(state_dict, strict=True)
+        if self._local is not None:
+            self._local.model.load_state_dict(state_dict, strict=True)
+            return
+        with self._closing_on_error():
+            for w in self.engines:
+                w.send(("params", dict(state_dict)))
+            for w in self.engines:
+                w.recv()
 
     def map_videos(self, items: Sequence, fn) -> List:
         """fn(engine, item) -> result; results in input order. Item i goes to
-        engine i % n, the same interleaved split as shard_videos."""
+        engine i % n, the same interleaved split as shard_videos. In a pool of
+        several, `fn` runs in the workers, so it must be picklable (a
+        module-level function) and so must the items; numpy arrays in them and
+        in the results cross in shared memory."""
+        if self._local is not None:
+            with _on_device(self._local.device):
+                return [fn(self._local, it) for it in items]
         n = len(self.engines)
-        if n == 1 or len(items) <= 1:
-            return [fn(self.engines[0], it) for it in items]
-        results: List = [None] * len(items)
+        with self._closing_on_error():
+            for i, item in enumerate(items):
+                self.engines[i % n].send(("call", fn), item)
+            return [self.engines[i % n].recv() for i in range(len(items))]
 
-        def worker(e: int):
-            eng = self.engines[e]
-            with _on_device(eng.device):
-                for i in range(e, len(items), n):
-                    results[i] = fn(eng, items[i])
-
-        _run_workers(worker, min(n, len(items)))
-        return results
+    @contextmanager
+    def _closing_on_error(self):
+        try:
+            yield
+        except BaseException:
+            self.close()
+            raise
 
 
 def _on_device(device: torch.device):
@@ -517,11 +573,229 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
-def _run_workers(worker, n: int) -> None:
-    """worker(0..n-1) on n threads; re-raises the first worker's exception."""
-    with ThreadPoolExecutor(max_workers=n) as ex:
-        for f in [ex.submit(worker, e) for e in range(n)]:
-            f.result()
+class _Shared:
+    """A numpy array that crosses to or from a worker as a tensor in shared
+    memory (copied in once, read there without a copy), into `t` when given
+    (a buffer of the array's shape and dtype), else into new shared memory."""
+
+    def __init__(self, a: np.ndarray, t: Optional[torch.Tensor] = None):
+        self.t = _new_shared(a.shape, _TORCH_DTYPES[a.dtype.str[1:]]) if t is None else t
+        self.t.numpy()[...] = a
+
+    def array(self) -> np.ndarray:
+        return self.t.numpy()
+
+
+def _new_shared(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor whose storage is made in shared memory (`share_memory_()` of
+    a new tensor would first copy it there: twice the time per clip)."""
+    numel = int(np.prod(shape))
+    storage = torch.UntypedStorage._new_shared(max(numel * dtype.itemsize, 1))
+    return torch.empty(0, dtype=dtype).set_(storage)[:numel].view(tuple(shape))
+
+
+_TORCH_DTYPES = {"u1": torch.uint8, "b1": torch.bool, "f4": torch.float32, "f8": torch.float64,
+                 "i4": torch.int32, "i8": torch.int64}
+
+
+def _to_wire(obj, buffer=None):
+    """numpy arrays (of the dtypes the engine takes and returns) inside
+    lists, tuples and dicts -> _Shared, each in `buffer(shape, dtype)` when
+    given."""
+    if isinstance(obj, np.ndarray) and obj.dtype.str[1:] in _TORCH_DTYPES:
+        return _Shared(obj, buffer and buffer(obj.shape, _TORCH_DTYPES[obj.dtype.str[1:]]))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_wire(o, buffer) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to_wire(v, buffer) for k, v in obj.items()}
+    return obj
+
+
+def _from_wire(obj, keep: Optional[deque] = None):
+    """_Shared -> numpy views of their shared memory; their tensors are
+    appended to `keep` when given."""
+    if isinstance(obj, _Shared):
+        if keep is not None:
+            keep.append(obj.t)
+        return obj.array()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_from_wire(o, keep) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _from_wire(v, keep) for k, v in obj.items()}
+    return obj
+
+
+def _kernel_counters():
+    """(function, attribute) of every kernel launch and plain-call counter."""
+    from .ops import ms_deform_attn, window_attention, window_attention_torch
+
+    return [(ms_deform_attn, a) for a in ("launches", "plain_calls", "bwd_launches",
+                                          "plain_bwd_calls")] + [
+        (window_attention, "launches"), (window_attention, "plain_calls"),
+        (window_attention_torch, "calls")]
+
+
+class _EngineWorker:
+    """One engine in a worker process: a request queue in, a reply queue out
+    (torch.multiprocessing: tensors cross in shared memory, CUDA tensors by
+    IPC), answered in order. `recv` raises the worker's error, or a
+    RuntimeError once the process has died.
+
+    The arrays of a request (`send(msg, arrays)`) go into shared buffers
+    this object keeps and reuses once the request's reply has come: making
+    new shared memory for each 16 x 360 x 640 clip's frames took the caller
+    about 29 ms a clip on the card machine (8 ms with reuse), too slow to
+    feed four cards."""
+
+    POLL_S = 1.0
+    KEEP = 4  # free buffers kept per (shape, dtype)
+
+    def __init__(self, model: torch.nn.Module, device: torch.device, engine_kwargs: dict,
+                 threads: int):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.device = device
+        self.inbox, self.outbox = ctx.Queue(), ctx.Queue()
+        self._free: Dict[tuple, List[torch.Tensor]] = {}
+        self._held: deque = deque()  # per request awaiting its reply: its buffers
+        self.proc = ctx.Process(
+            target=_worker_main, daemon=True, name=f"engine-{device}",
+            args=(str(device), engine_kwargs, threads, self.inbox, self.outbox))
+        self.proc.start()
+        self.send(("model", model))
+
+    def send(self, msg, arrays=None) -> None:
+        """Queue request `msg` (None, ("end",) or one that is answered), with
+        `arrays` (numpy arrays inside lists, tuples and dicts) appended to it
+        in shared buffers."""
+        if not self.proc.is_alive():
+            raise RuntimeError(f"the engine worker on {self.device} is not running "
+                               f"(exit code {self.proc.exitcode})")
+        held = []
+        if arrays is not None:
+            msg = msg + (_to_wire(arrays, lambda shape, dtype: self._buffer(shape, dtype, held)),)
+        self.inbox.put(msg)
+        if msg is not None and msg[0] != "end":
+            self._held.append(held)
+
+    def _buffer(self, shape, dtype, held: list) -> torch.Tensor:
+        free = self._free.get((tuple(shape), dtype))
+        t = free.pop() if free else _new_shared(shape, dtype)
+        held.append(t)
+        return t
+
+    def recv(self):
+        """The next reply: its result, after adding the worker's kernel counts
+        to this process's counters."""
+        while True:
+            try:
+                kind, payload, counts = self.outbox.get(timeout=self.POLL_S)
+                break
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"the engine worker on {self.device} died (exit code "
+                                       f"{self.proc.exitcode})") from None
+        for (fn, attr), c in zip(_kernel_counters(), counts):
+            setattr(fn, attr, getattr(fn, attr) + c)
+        for t in self._held.popleft():  # the worker is done with the request's arrays
+            free = self._free.setdefault((tuple(t.shape), t.dtype), [])
+            if len(free) < self.KEEP:
+                free.append(t)
+        if kind == "error":
+            raise RuntimeError(f"the engine worker on {self.device} failed:\n{payload}")
+        return _from_wire(payload)
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            try:
+                self.inbox.put(None)
+            except (OSError, ValueError):
+                pass
+            self.proc.join(10)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+        for q in (self.inbox, self.outbox):
+            q.cancel_join_thread()
+            q.close()
+
+
+def _worker_main(device: str, engine_kwargs: dict, threads: int, inbox, outbox):
+    """A worker's loop: build the engine on `device` on a copy of the model
+    that arrives first, ("model", model), reply "ready", then answer each
+    request in order until None arrives or the parent process is gone:
+    ("params", state_dict), ("call", fn, item), ("video", kwargs) (a run of
+    videos, pipelined at depth 1 through infer_videos, ended by ("end",)).
+    Every reply carries the kernel counts of its work."""
+    import multiprocessing
+
+    counters = _kernel_counters()
+    parent = multiprocessing.parent_process()
+    # the caller reuses its request buffers; while a buffer's storage lives here, a request
+    # that brings it again maps to it (torch's shared-storage cache) instead of mapping and
+    # faulting in its pages anew
+    mapped = deque(maxlen=4 * (WORKER_AHEAD + 1 + _EngineWorker.KEEP))
+
+    def reply(kind, payload):
+        counts = [getattr(fn, a) for fn, a in counters]
+        for fn, a in counters:
+            setattr(fn, a, 0)
+        outbox.put((kind, payload, counts))
+
+    def get():
+        while True:
+            try:
+                return inbox.get(timeout=_EngineWorker.POLL_S)
+            except queue.Empty:
+                if parent is not None and not parent.is_alive():
+                    return None
+
+    try:
+        torch.set_num_threads(threads)
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        msg = get()
+        if msg is None:
+            return
+        # a replica of its own on this device, never the sender's memory (shared
+        # memory, or CUDA IPC on the sender's card)
+        engine = InferenceEngine(copy.deepcopy(msg[1].to(dev)), device=dev, **engine_kwargs)
+        del msg
+    except BaseException:
+        reply("error", traceback.format_exc())
+        return
+    reply("ready", None)
+    msg = get()
+
+    def videos():  # the run of ("video", kwargs) requests from `msg` on
+        nonlocal msg
+        while msg is not None and msg[0] == "video":
+            yield _from_wire(msg[1], mapped)
+            msg = get()
+
+    while msg is not None:
+        try:
+            if msg[0] == "params":
+                engine.model.load_state_dict(msg[1], strict=True)
+                reply("ok", None)
+            elif msg[0] == "call":
+                reply("ok", _to_wire(msg[1](engine, _from_wire(msg[2], mapped))))
+            elif msg[0] == "video":
+                for res in engine.infer_videos(videos(), depth=1):
+                    reply("ok", _to_wire(res))
+                continue  # msg is the request after the run ("end" or None)
+        except Exception:
+            reply("error", traceback.format_exc())
+        msg = get()
+
+
+# videos sent to a worker beyond the one whose result is read next: a worker dispatches its
+# next video before it hands back the last one's result (depth 1), and with one video ahead it
+# waited for the caller's turn to send it (two worker processes on one card ran at 0.46x two
+# independent processes there)
+WORKER_AHEAD = 2
 
 
 def run_videos_pipelined(engine_or_pool, items: Sequence, item_fn, post_fn) -> List:
@@ -532,26 +806,37 @@ def run_videos_pipelined(engine_or_pool, items: Sequence, item_fn, post_fn) -> L
     inside post_fn overlap the device.
 
     item_fn(item) -> kwargs of infer_video_multi (side data for post_fn may
-    be stashed on the item: each item is touched by one thread);
-    post_fn(item, results) -> stored value. Returns post_fn's values in input
-    order."""
-    engines = (engine_or_pool.engines if isinstance(engine_or_pool, EnginePool)
-               else [engine_or_pool])
-    n = len(engines)
-    results: List = [None] * len(items)
+    be stashed on the item); post_fn(item, results) -> stored value. Both run
+    in the calling process, one item at a time; a pool's workers run only
+    infer_video_multi. Returns post_fn's values in input order."""
+    pool = engine_or_pool if isinstance(engine_or_pool, EnginePool) else None
+    engine = engine_or_pool if pool is None else pool._local
+    if engine is not None:
+        with _on_device(engine.device):
+            kwargs = (item_fn(item) for item in items)
+            return [post_fn(item, res)
+                    for item, res in zip(items, engine.infer_videos(kwargs, depth=1))]
+    workers, results = pool.engines, [None] * len(items)
+    pending = [deque() for _ in workers]  # item indices sent, results not yet read
 
-    def worker(e: int):
-        eng = engines[e]
-        idxs = list(range(e, len(items), n))
-        with _on_device(eng.device):
-            gen = (item_fn(items[i]) for i in idxs)
-            for i, res in zip(idxs, eng.infer_videos(gen, depth=1)):
-                results[i] = post_fn(items[i], res)
+    def finish(e: int) -> None:
+        i = pending[e].popleft()
+        results[i] = post_fn(items[i], workers[e].recv())
 
-    if n == 1 or len(items) <= 1:
-        worker(0)
-    else:
-        _run_workers(worker, min(n, len(items)))
+    with pool._closing_on_error():
+        for i, item in enumerate(items):
+            e = i % len(workers)
+            workers[e].send(("video",), item_fn(item))
+            pending[e].append(i)
+            if len(pending[e]) > WORKER_AHEAD:
+                finish(e)
+        for e, w in enumerate(workers):
+            if pending[e]:
+                w.send(("end",))
+        while any(pending):
+            for e in range(len(workers)):
+                if pending[e]:
+                    finish(e)
     return results
 
 

@@ -1,6 +1,5 @@
-"""Box conversions, IoU / GIoU and inverse_sigmoid (torch twins of
-neurips2023_soc_tpu/utils/boxes.py, the parts the model, matcher and
-criterion use)."""
+"""Box conversions, IoU / GIoU, inverse_sigmoid and masks_to_boxes (torch
+twins of neurips2023_soc_tpu/utils/boxes.py)."""
 from __future__ import annotations
 
 import torch
@@ -45,3 +44,18 @@ def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x = x.clamp(0.0, 1.0)
     return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) binary masks -> (..., 4) xyxy float32 boxes in pixels, the
+    last pixel inclusive; zeros for an empty mask."""
+    h, w = masks.shape[-2:]
+    m = masks.float()
+    ys = torch.arange(h, dtype=torch.float32, device=m.device)
+    xs = torch.arange(w, dtype=torch.float32, device=m.device)
+    x_proj, y_proj = m.amax(-2), m.amax(-1)  # (..., W), (..., H)
+    big = torch.tensor(1e8, dtype=torch.float32, device=m.device)
+    boxes = torch.stack([torch.where(x_proj > 0, xs, big).amin(-1),
+                         torch.where(y_proj > 0, ys, big).amin(-1),
+                         (x_proj * xs).amax(-1), (y_proj * ys).amax(-1)], -1)
+    return torch.where((m.sum((-1, -2)) > 0)[..., None], boxes, torch.zeros_like(boxes))

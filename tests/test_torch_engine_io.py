@@ -7,6 +7,7 @@ the YTVOS/DAVIS save helpers (byte-identical files), the config CLI flags
 and the single-process multihost no-ops."""
 import argparse
 import copy
+import time
 import zipfile
 
 import jax.numpy as jnp
@@ -114,35 +115,95 @@ def test_engine_yuv420_input_and_uint8_probabilities(model):
         tinf.InferenceEngine(model, device="cpu", probs_dtype="float16", **ENGINE)
 
 
+def _infer_one(engine, item):
+    """map_videos's fn in a worker process: picklable, so module-level."""
+    return engine.infer_video(*item)
+
+
+def _counts():
+    return [getattr(fn, a) for fn, a in tinf._kernel_counters()]
+
+
+def _reset_counts():
+    for fn, a in tinf._kernel_counters():
+        setattr(fn, a, 0)
+
+
 def test_engine_pool_and_pipelined_runs(model):
-    """Two CPU "devices": each engine holds its own replica (the first one on
-    the model's own device the given model, so that device holds one copy),
-    items go round robin, and the results equal one engine's; update_params
-    reaches every replica and skips the object it loaded last."""
+    """Two CPU "devices": each engine runs in a worker process of its own on a
+    copy of the model; items go round robin, and map_videos' and
+    run_videos_pipelined's results are bit-equal to one engine's; the
+    workers' kernel and plain-call counts are added to this process's;
+    update_params reaches every worker and skips the object it loaded last;
+    close() ends the workers. A pool of one device is that engine, in this
+    process, on the given model."""
     videos = [_frames(4 + i, t=3) for i in range(3)]
     texts = ["a thing", "another thing", "the left one"]
     single = tinf.InferenceEngine(model, device="cpu", **ENGINE)
+    _reset_counts()
     want = [single.infer_video(v, t) for v, t in zip(videos, texts)]
-    given = copy.deepcopy(model)  # update_params below overwrites the pool's weights
-    pool = tinf.EnginePool(given, devices=["cpu", "cpu"], **ENGINE)
-    assert len(pool.engines) == 2
-    assert pool.engines[0].model is given and pool.engines[1].model is not given
-    got = pool.map_videos(list(zip(videos, texts)), lambda e, it: e.infer_video(*it))
-    items = [{"v": v, "t": t} for v, t in zip(videos, texts)]
-    piped = tinf.run_videos_pipelined(pool, items, lambda it: dict(frames=it["v"],
-                                                                   texts=[it["t"]]),
-                                      lambda it, res: res[0])
-    for g, p, w in zip(got, piped, want):
-        np.testing.assert_array_equal(g, w)
-        np.testing.assert_array_equal(p, w)
-    sd = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
-    pool.update_params(sd)
-    assert all(torch.equal(e.model.state_dict()["query_embed.weight"],
-                           sd["query_embed.weight"]) for e in pool.engines)
-    with torch.no_grad():
-        pool.engines[1].model.query_embed.weight.fill_(1.0)
-    pool.update_params(sd)  # the same object: nothing reloads
-    assert pool.engines[1].model.query_embed.weight[0, 0].item() == 1.0
+    want_counts = _counts()
+    assert want_counts[1] > 0  # the plain MSDA ran
+    one = tinf.EnginePool(model, devices=["cpu"], **ENGINE)
+    assert isinstance(one.engines[0], tinf.InferenceEngine) and one.engines[0].model is model
+    with tinf.EnginePool(model, devices=["cpu", "cpu"], **ENGINE) as pool:
+        workers = pool.engines
+        assert len(workers) == 2 and all(isinstance(w, tinf._EngineWorker) and w.proc.is_alive()
+                                         for w in workers)
+        _reset_counts()
+        got = pool.map_videos(list(zip(videos, texts)), _infer_one)
+        assert _counts() == want_counts
+        items = [{"v": v, "t": t} for v, t in zip(videos, texts)]
+        _reset_counts()
+        piped = tinf.run_videos_pipelined(pool, items, lambda it: dict(frames=it["v"],
+                                                                       texts=[it["t"]]),
+                                          lambda it, res: res[0])
+        assert _counts() == want_counts
+        for g, p, w in zip(got, piped, want):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(p, w)
+        # zeroed weights reach every worker: both give the zeroed model's masks
+        sd = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
+        zeroed = copy.deepcopy(model)
+        zeroed.load_state_dict(sd)
+        want_zero = tinf.InferenceEngine(zeroed, device="cpu", **ENGINE).infer_video(
+            videos[0], texts[0])
+        assert not np.array_equal(want_zero, want[0])
+        sent = []
+        for w in workers:
+            w.send = (lambda send: lambda msg, *a: (sent.append(msg[0]), send(msg, *a)))(w.send)
+        pool.update_params(sd)
+        pool.update_params(sd)  # the same object: nothing is sent
+        assert sent == ["params", "params"]
+        for got in pool.map_videos([(videos[0], texts[0])] * 2, _infer_one):
+            np.testing.assert_array_equal(got, want_zero)
+    assert not any(w.proc.is_alive() for w in workers)
+
+
+def test_engine_pool_worker_error_reaches_the_caller(model):
+    """A worker that raises: the caller gets its exception with the worker's
+    traceback, within a time limit, the pool closes and no process is left
+    alive; a pool whose worker has died raises instead of waiting for it."""
+    frames = _frames(7, t=2)
+    pool = tinf.EnginePool(model, devices=["cpu", "cpu"], **ENGINE)
+    worker = pool.engines[1]
+    items = [dict(frames=frames, texts=["a thing"]),
+             dict(frames=frames.astype(np.int16), texts=["a thing"])]  # item 1: worker 1's
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="(?s)worker on cpu failed.*frames must be"):
+        tinf.run_videos_pipelined(pool, items, lambda it: it, lambda it, res: res)
+    assert time.monotonic() - t0 < 30
+    worker.proc.join(10)
+    assert not worker.proc.is_alive()
+    pool = tinf.EnginePool(model, devices=["cpu", "cpu"], **ENGINE)
+    try:
+        pool.engines[1].proc.kill()
+        pool.engines[1].proc.join(10)
+        with pytest.raises(RuntimeError, match="worker on cpu"):
+            pool.map_videos([(frames, "a"), (frames, "b")], _infer_one)
+    finally:
+        pool.close()
+    assert not pool.engines[1].proc.is_alive()
 
 
 def test_engine_pool_defaults_to_every_card(model):

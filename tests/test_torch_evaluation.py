@@ -58,6 +58,18 @@ def test_rle_equals_jax(case):
     assert rle.area(r) == jax_rle.area(r) == int(m.sum())
 
 
+@pytest.mark.parametrize("case", ["random", "zeros", "ones", "single", "stripes", "long"])
+def test_rle_native_counts_equal_numpy(case):
+    """The C++ run counter (csrc/rle_counts.cpp) against its numpy version and
+    the JAX package's numpy runs: the same counts, as int64."""
+    m = _rle_mask(case)
+    got = rle._counts_from_mask(m)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, rle.counts_numpy(m))
+    np.testing.assert_array_equal(got, jax_rle._counts_from_mask(m))
+    np.testing.assert_array_equal(rle._counts_from_mask(m[:0]), np.zeros(0, np.int64))
+
+
 def test_rle_iou_equals_jax():
     a = np.zeros((20, 20), np.uint8)
     a[:10, :10] = 1

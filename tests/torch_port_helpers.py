@@ -239,7 +239,9 @@ def perturb_sampling_offsets(tree, rng):
     """At init the sampling offsets' kernel is zero, so every encoder sample
     sits exactly on a pixel centre, a kink of the bilinear sampling where the
     two frameworks' last-bit differences pick different one-sided slopes.
-    A small random kernel moves the samples off the kinks."""
+    A small random kernel moves the samples off the pixel grid; a few of the
+    many samples still land near a kink by chance, which `move_off_kinks`
+    repairs."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -249,6 +251,143 @@ def perturb_sampling_offsets(tree, rng):
         else:
             out[k] = v
     return out
+
+
+# A gradient is piecewise: at a kink (a bilinear sample on a pixel boundary, a ReLU input
+# at 0) the two frameworks' f32 values, which differ by about 1e-6 of scale, can fall on
+# either side and take different one-sided slopes. The train-step parity point keeps every
+# such value this far from its kink: sampling coordinates x = loc * W - 0.5 (the JAX and
+# port coordinates differed by up to 1e-5 px at the tiny config) and ReLU inputs of the
+# token-level layers (relative to the layer's largest |input|).
+KINK_MARGIN_PX = 3e-5
+KINK_MARGIN_REL = 1e-5
+
+
+class KinkProbe:
+    """Records, during port forwards, the distance of every value that decides a
+    one-sided slope from its kink, with the bias entry that moves it:
+
+    - each MSDA call (`MSDeformAttnModule`): x = loc * W - 0.5 and y = loc * H - 0.5
+      of every sample per (head, level, point, axis), moved by that entry of
+      `sampling_offsets.bias` (slope 1 px per unit with 2-d reference points, W * w / 2P
+      with boxes);
+    - each token-level ReLU input: the Linear before the ReLU of the deformable
+      encoder and decoder layers, of `FFNLayer` and of the MLP heads, per unit, moved by
+      that unit's bias.
+
+    The per-pixel ReLUs of the FPN and the dynamic mask head are not probed: their
+    inputs reach |100| at random weights and the frameworks' mask logits agree only to
+    1e-4 of scale, so no margin above that noise can hold over their 1e5 values; one
+    flipped pixel carries one pixel's share of the gradient."""
+
+    def __init__(self, model):
+        from neurips2023_soc_torch.models.common import FFNLayer, MLP
+        from neurips2023_soc_torch.models.deformable_transformer import (
+            DecoderLayer, EncoderLayer, MSDeformAttnModule)
+
+        relu = torch.nn.functional.relu
+        self.sites, self._handles = [], []
+        for name, mod in model.named_modules():
+            if isinstance(mod, MSDeformAttnModule):
+                self._hook(mod, name, self._msda)
+            elif isinstance(mod, (EncoderLayer, DecoderLayer, FFNLayer)) \
+                    and mod.activation is relu:
+                self._hook(mod.linear1, f"{name}.linear1", self._relu)
+            elif isinstance(mod, MLP):
+                for i, layer in enumerate(mod.layers[:-1]):
+                    self._hook(layer, f"{name}.layers.{i}", self._relu)
+
+    def _hook(self, mod, name, fn):
+        self._handles.append(mod.register_forward_hook(
+            lambda m, args, out: self.sites.append(fn(name, m, args, out))))
+
+    @staticmethod
+    def _msda(name, mod, args, out):
+        ref, shapes, loc = args[1].detach(), args[3], out[1].detach()
+        L, P = mod.n_levels, mod.n_points
+        sizes = torch.tensor([[w, h] for h, w in shapes], dtype=loc.dtype)[:, None]  # (L, 1, 2)
+        x = loc * sizes - 0.5  # (B, Lq, M, L, P, 2), as the op computes it
+        if ref.shape[-1] == 2:
+            slope = torch.ones_like(x)
+        else:
+            slope = (ref[:, :, None, :, None, 2:] * sizes * (0.5 / P)).expand_as(x)
+
+        def entries(t):  # (entries in the bias's order m, l, p, axis) x samples (b, q)
+            return t.permute(2, 3, 4, 5, 0, 1).reshape(-1, t.shape[0] * t.shape[1]).double()
+
+        return dict(name=name, kind="msda", bias=mod.sampling_offsets.bias, levels=L, P=P,
+                    values=entries(x), slopes=entries(slope), margin=KINK_MARGIN_PX)
+
+    @staticmethod
+    def _relu(name, mod, args, out):
+        v = out.detach().reshape(-1, out.shape[-1]).T.double()  # units x tokens
+        return dict(name=name, kind="relu", bias=mod.bias, values=v,
+                    slopes=torch.ones_like(v),
+                    margin=KINK_MARGIN_REL * float(v.abs().max()))
+
+    def close(self):
+        for h in self._handles:
+            h.remove()
+
+
+def _kink_distance(site, values):
+    return values.abs() if site["kind"] == "relu" else (values - values.round()).abs()
+
+
+def kink_violations(sites):
+    """(message, site, entry) for every bias entry whose values come within the
+    site's margin of a kink."""
+    out = []
+    for i, site in enumerate(sites):
+        d = _kink_distance(site, site["values"]).min(-1).values
+        for e in torch.nonzero(d < site["margin"]).flatten().tolist():
+            if site["kind"] == "msda":
+                L, P = site["levels"], site["P"]
+                m, l, p, c = e // (L * P * 2), e // (P * 2) % L, e // 2 % P, e % 2
+                where = (f"MSDA call {i} ({site['name']}), level {l}, head {m}, point {p}, "
+                         f"{'xy'[c]}: a sample {d[e]:.3e} px from a bilinear kink")
+            else:
+                where = (f"ReLU call {i} ({site['name']}), unit {e}: an input {d[e]:.3e} "
+                         "from 0")
+            out.append((f"{where} (margin {site['margin']:.3e})", site, e))
+    return out
+
+
+def move_off_kinks(model, forward, passes=12):
+    """Moves the parity point off every probed kink: each bias entry whose values
+    come within the margin of a kink is shifted by the smallest step (a multiple of
+    the margin, up to 400 of them, + before -) after which all its values lie at
+    least twice the margin away; the forward runs again until no entry is near a
+    kink (a shift moves the values downstream of it). `forward()` runs the port's
+    forward as the comparison does. Returns the number of entries shifted."""
+    steps = torch.arange(1, 401, dtype=torch.float64).repeat_interleave(2)
+    steps[1::2] *= -1
+    moved = 0
+    for _ in range(passes):
+        probe = KinkProbe(model)
+        try:
+            with torch.no_grad():
+                forward()
+        finally:
+            probe.close()
+        bad = kink_violations(probe.sites)
+        if not bad:
+            return moved
+        for msg, site, e in bad:
+            deltas = steps * site["margin"]
+            vals = site["values"][e][:, None] + site["slopes"][e][:, None] * deltas
+            ok = _kink_distance(site, vals).min(0).values >= 2 * site["margin"]
+            if not ok.any():
+                raise AssertionError(f"no shift of up to 400 margins clears {msg}")
+            with torch.no_grad():
+                site["bias"][e] += float(deltas[int(torch.nonzero(ok)[0])])
+            moved += 1
+    raise AssertionError(f"still near a kink after {passes} passes: {bad[0][0]}")
+
+
+def assert_off_kinks(sites):
+    bad = kink_violations(sites)
+    assert not bad, f"{len(bad)} values within the margin of a kink; first: {bad[0][0]}"
 
 
 class NoFlaxDropout:
@@ -273,9 +412,11 @@ def train_step_pair(b, kw, valid_indices=False):
     offsets moved off the pixel grid, dropout off on both sides. Both run
     `head(backbone_features(x), ..., training=True)` (JAX's Swin drop path has
     no off switch), with the batch's `valid_indices` when asked (the A2D
-    centre-frame step). Returns (port model, JAX results {loss, losses, out,
-    grads}, port results {loss, losses, out}); the port's gradients are on
-    its parameters."""
+    centre-frame step). The point is moved off the kinks first
+    (`move_off_kinks`), and the compared forward asserts that it stays off
+    them. Returns (port model, JAX results {loss, losses, out, grads}, port
+    results {loss, losses, out}); the port's gradients are on its
+    parameters."""
     from neurips2023_soc_torch.convert import load_jax_params
     from neurips2023_soc_torch.losses import CriterionConfig, compute_criterion, total_loss
     from neurips2023_soc_torch.models.common import Dropout, init_weights
@@ -291,11 +432,21 @@ def train_step_pair(b, kw, valid_indices=False):
     tm = init_weights(SOC(dropout=0.0, **kw), torch.Generator().manual_seed(0))
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *inputs)
     params = {"params": jax_params_from_torch(tm, shapes["params"])}
-    params = perturb_sampling_offsets(params, np.random.RandomState(0))
-    load_jax_params(tm, params)
+    load_jax_params(tm, perturb_sampling_offsets(params, np.random.RandomState(0)))
     for m in tm.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items() if hasattr(v, "ndim")}
+
+    def port_forward():
+        feats = tm.backbone_features(t["pixels"], t["pad_mask"])
+        return tm.head(feats, t["pad_mask"], t["text_ids"], t["text_mask"],
+                       sample_sizes=t["sample_sizes"],
+                       valid_indices=t["valid_indices"] if valid_indices else None,
+                       training=True, rng=torch.Generator())
+
+    move_off_kinks(tm, port_forward)
+    params = {"params": jax_params_from_torch(tm, shapes["params"])}
     targets = {k: b[k] for k in TARGET_KEYS}
     valid = b["valid_indices"] if valid_indices else None
 
@@ -311,12 +462,12 @@ def train_step_pair(b, kw, valid_indices=False):
         (loss, (losses, out)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             params)
 
-    t = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items() if hasattr(v, "ndim")}
-    feats = tm.backbone_features(t["pixels"], t["pad_mask"])
-    tout = tm.head(feats, t["pad_mask"], t["text_ids"], t["text_mask"],
-                   sample_sizes=t["sample_sizes"],
-                   valid_indices=t["valid_indices"] if valid_indices else None, training=True,
-                   rng=torch.Generator())
+    probe = KinkProbe(tm)
+    try:
+        tout = port_forward()
+    finally:
+        probe.close()
+    assert_off_kinks(probe.sites)
     tlosses = compute_criterion(tout, {k: t[k] for k in TARGET_KEYS}, CriterionConfig())
     tloss = total_loss(tlosses, CriterionConfig())
     tloss.backward()
