@@ -185,11 +185,6 @@ prints no result):
                convolutions move, their gradients non-zero and inside the
                step's grad_norm (recomputed from the gradients the optimizer is
                handed), one step's K1/K2 calls checked.
- 12. bench   — bench_torch.py as a subprocess at small counts (BENCH_ITERS=3,
-               BENCH_VIDEOS=3, BENCH_TRAIN_ITERS=2): its JSON line names this
-               card, every number in it is finite and positive, and each
-               block made exactly the K1, K2 and K3 launches of its clips and
-               steps.
 Every kernel counter is set to 0 just before each path is driven and read
 just after. `python3 chip_smoke.py --msda-times` only times K1 and K2 at the
 path's shapes, `--train-times` only runs phase train (a copy of this
@@ -2614,88 +2609,6 @@ def resnet_path(smi: str, out_dir: str) -> dict:
                 device_fps=timings["device_fps"], step_ms=step_ms)
 
 
-BENCH_SMOKE = dict(BENCH_ITERS=3, BENCH_VIDEOS=3, BENCH_TRAIN_ITERS=2)
-
-
-def bench_launches(record: dict) -> dict:
-    """The kernel launches bench_torch.py's blocks must have made at the
-    BENCH_SMOKE counts: K1 6 per clip and per expression (K2 6 per training
-    step), K3 24 per Video-Swin-B clip and 12 per Video-Swin-T clip with
-    `pallas`, none in training."""
-    it, n = BENCH_SMOKE["BENCH_ITERS"], BENCH_SMOKE["BENCH_VIDEOS"]
-    steps = 2 + BENCH_SMOKE["BENCH_TRAIN_ITERS"]
-
-    def clips(kind: str, videos: int = n) -> int:
-        return 2 + it + 3 * (it if kind == "device" else videos)
-
-    want = {}
-    for attn, blocks in record["inference"].items():
-        for kind in blocks:
-            c = clips(kind)
-            want[f"inference.{attn}.{kind}"] = dict(
-                k1=MSDA_PER_CLIP * c, k2=0, k3=K3_PER_CLIP * c if attn == "pallas" else 0)
-    for kind in record["secondary"]["video-swin-t"]:
-        c = clips(kind)
-        want[f"secondary.video-swin-t.{kind}"] = dict(k1=MSDA_PER_CLIP * c, k2=0,
-                                                      k3=K3_PER_PASS_T * c)
-    c = clips("multi", max(3, n // 2))
-    want["multi_expression"] = dict(k1=MSDA_PER_CLIP * 8 * c, k2=0, k3=K3_PER_CLIP * c)
-    for backbone in ("video-swin-t", "video-swin-b"):
-        want[f"train.{backbone}"] = dict(k1=MSDA_PER_CLIP * steps, k2=MSDA_PER_CLIP * steps, k3=0)
-    return want
-
-
-def bench_smoke(smi: str) -> dict:
-    """bench_torch.py once as a subprocess at the BENCH_SMOKE counts: its last
-    line must be one JSON object naming this card, every number in it finite
-    and positive, and each block's kernel launches those of bench_launches."""
-    import os
-
-    env = dict(os.environ, **{k: str(v) for k, v in BENCH_SMOKE.items()})
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise RuntimeError(f"[bench] bench_torch.py exited {out.returncode}:\n"
-                           f"{out.stderr[-4000:]}")
-    record = json.loads(out.stdout.strip().splitlines()[-1])
-    bad = []
-
-    def walk(obj, path: str) -> None:
-        if isinstance(obj, dict):
-            for k, v in obj.items():
-                if k != "launches":
-                    walk(v, f"{path}.{k}" if path else k)
-        elif isinstance(obj, list):
-            for i, v in enumerate(obj):
-                walk(v, f"{path}[{i}]")
-        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
-            if not (math.isfinite(obj) and obj > 0):
-                bad.append((path, obj))
-
-    walk(record, "")
-    if bad or record["card"] != smi:
-        raise RuntimeError(f"[bench] numbers not finite and positive: {bad}; card "
-                           f"{record['card']!r}")
-    for path, want in bench_launches(record).items():
-        block = record
-        for key in path.split("."):
-            block = block[key]
-        if block["launches"] != want:
-            raise RuntimeError(f"[bench] {path}: launches {block['launches']}, expected {want}")
-    b = record["inference"]
-    log(f"[bench] {smi}: bench_torch.py at {BENCH_SMOKE} in {seconds:.1f} s (its own "
-        f"{record['seconds']:.1f} s): Swin-B engine u8 pipelined K3 "
-        f"{b['pallas']['engine_u8']['pipelined_fps']['median']:.2f} / xla "
-        f"{b['xla']['engine_u8']['pipelined_fps']['median']:.2f} frames/s, device pipelined K3 "
-        f"{b['pallas']['device']['pipelined_fps']['median']:.2f}; train step Swin-T / Swin-B "
-        f"{record['train']['video-swin-t']['step_ms']['median']:.1f} / "
-        f"{record['train']['video-swin-b']['step_ms']['median']:.1f} ms; every number finite "
-        f"and positive, every block's launches exact (smoke counts: not a reading)")
-    return record
-
-
 def small_reference(attn_impl: str, T: int = 4) -> None:
     """A small float32 SOC on the card against the same weights on the CPU
     (plain versions: window_attention_torch for xla, window_attention_ref
@@ -2813,8 +2726,6 @@ def main(argv) -> int:
     for path in (ddp, joint, resnet):
         k1["launches"] += path["k1"]
         k2["launches"] += path["k2"]
-    torch.cuda.empty_cache()
-    bench_smoke(smi)
 
     log(smi)
     keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",

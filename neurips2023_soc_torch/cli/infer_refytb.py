@@ -8,6 +8,11 @@ infer_refytb.py), on the CUDA card:
 through kernel K3. Several visible cards run one engine each (EnginePool);
 several processes (torch.distributed) split the videos. `--device cpu` runs
 on the CPU.
+
+The config's `profile_steps: N` writes a torch.profiler trace of videos
+1..N (a Chrome trace under output_dir/profile) with the engine's and the
+model's `soc.*` spans beside the kernels. Over several cards it holds this
+process only: the EnginePool's workers, which run the model, are not in it.
 """
 from __future__ import annotations
 
@@ -104,8 +109,9 @@ def main(argv=None):
             frame_path_fn=lambda vid, frame: osp.join(
                 config.img_folder, "valid", "JPEGImages", vid, frame + ".jpg"))
     try:
-        result = evaluate_refer_youtube_vos(engine, dataset, out_dir, groups=groups,
-                                            **vis_kwargs)
+        result = evaluate_refer_youtube_vos(
+            engine, dataset, out_dir, groups=groups,
+            profile_videos=int(config.get("profile_steps", 0) or 0), **vis_kwargs)
     finally:
         if isinstance(engine, EnginePool):
             engine.close()

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -36,6 +36,7 @@ from .inference import _to_host
 from .models.postprocessing import (a2d_device_step, a2d_host_postprocess, a2d_postprocess,
                                     coco_topk_device_step)
 from .training.train_step import device_batch
+from .utils.logging import profile_trace
 from .utils.prefetch import prefetch
 
 MAX_IN_FLIGHT = 2  # batches whose host postprocess may still be pending
@@ -389,7 +390,7 @@ def build_ytvos_evaluator(model: torch.nn.Module, config, dataset=None) -> Calla
 
 def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool = True,
                                visualize_dir: str = None, frame_path_fn=None,
-                               groups=None) -> Dict[str, str]:
+                               groups=None, profile_videos: int = 0) -> Dict[str, str]:
     """Whole-video inference over the valid split, written as the competition
     submission (reference trainer.py:315-354).
 
@@ -404,17 +405,24 @@ def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool 
     color per expression (reference infer_refytb.py --visualize, 240-266).
 
     Several processes: callers shard the groups per process (shard_videos);
-    rank 0 writes the zip after a barrier, so output_dir must be shared."""
+    rank 0 writes the zip after a barrier, so output_dir must be shared.
+
+    profile_videos = N > 0 writes a torch.profiler trace (profile_trace) of
+    this process from the decode of video 1 to the PNGs of video N (video 0
+    warms up) under output_dir/profile."""
     from .inference import run_videos_pipelined, save_ytvos_predictions, zip_submission
     from .parallel.multihost import barrier, is_main_process
 
     if groups is None:
         groups = list(dataset.video_groups().values())
+    trace = ExitStack()
 
     def item_fn(w):
         """Decode one video group into infer_video_multi kwargs; it runs
         inside the pipelined loop, so the next group's decode overlaps this
         one's device work."""
+        if profile_videos and w["i"] == 1:
+            trace.enter_context(profile_trace(str(Path(output_dir) / "profile")))
         g = w["g"]
         s = dataset[g[0]]
         meta0 = s["video_metadata"]
@@ -434,8 +442,12 @@ def evaluate_refer_youtube_vos(engine, dataset, output_dir: str, make_zip: bool 
                 masks = r
             preds.append({**meta, "pred_masks": masks})
         save_ytvos_predictions(preds, output_dir)
+        if w["i"] == profile_videos:
+            trace.close()
 
-    run_videos_pipelined(engine, [{"g": g} for g in groups], item_fn, post_fn)
+    with trace:  # also closes a trace of more videos than there are
+        run_videos_pipelined(engine, [{"g": g, "i": i} for i, g in enumerate(groups)],
+                             item_fn, post_fn)
     out = {"predictions_dir": output_dir}
     if make_zip:
         barrier("ytvos_submission_pngs")  # every process has written its PNGs

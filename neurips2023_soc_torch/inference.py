@@ -49,6 +49,7 @@ from .data.collate import IMAGENET_MEAN, IMAGENET_STD
 from .device import resolve_device
 from .models.text_encoder import build_tokenizer
 from .ops import resize_bilinear
+from .utils.logging import span
 from .utils.padded import eval_size_buckets, pick_size_bucket, pick_time_bucket  # noqa: F401
 
 DEFAULT_TIME_BUCKETS = (8, 16, 32, 64)
@@ -182,7 +183,8 @@ class _Staging:
         slot = next((s for s in same if s[1] is None or s[1].query()), None)
         if slot is None and len(same) >= self.MAX_PER_SHAPE:
             slot = same[0]
-            slot[1].synchronize()
+            with span("soc.engine.staging_wait"):
+                slot[1].synchronize()
         if slot is None:
             slot = [torch.empty(shape, dtype=dtype, pin_memory=True), None]
             self._slots.append(slot)
@@ -345,6 +347,12 @@ class InferenceEngine:
                         return_boxes: bool = False) -> dict:
         """Upload, run and finalize every chunk of one video; returns a handle
         for _collect_video. Queues device work only; never waits for it."""
+        with span("soc.engine.dispatch"):
+            return self._dispatch(frames, texts, original_size, return_probs, trajectory,
+                                  return_boxes)
+
+    def _dispatch(self, frames, texts, original_size, return_probs, trajectory,
+                  return_boxes) -> dict:
         if trajectory not in ("video", "chunk"):
             raise ValueError(f"unknown trajectory: {trajectory!r} "
                              "(expected 'video' or 'chunk')")
@@ -368,25 +376,28 @@ class InferenceEngine:
             raise ValueError(f"YUV420 input needs even size buckets, got ({H}, {W})")
         oh, ow = (int(s) for s in (original_size or (fh, fw)))
         chunk = max(self.time_buckets)
-        toks = [self._tokens(t) for t in texts]
+        toks = None
         model = self.model
 
         # per chunk: [(score sum over real frames, logits, boxes) per text], t
         chunks = []
         for start in range(0, T_total, chunk):
-            if yuv:
-                clip = tuple(p[start:start + chunk] for p in frames)
-                t = clip[0].shape[0]
-            else:
-                clip = frames[start:start + chunk]
-                t = clip.shape[0]
-            T = pick_time_bucket(t, self.time_buckets)
-            pixels = self._pixel_buffer(clip, T, H, W, fh, fw)
-            pad = self._get_pad(T, H, W, fh, fw)
-            if yuv:
-                pixels = _yuv420_to_normalized(*pixels, pad, self._mean, self._std)
-            elif pixels.dtype == torch.uint8:
-                pixels = _normalize_u8_in_graph(pixels, pad, self._mean, self._std)
+            with span("soc.engine.upload"):
+                if toks is None:
+                    toks = [self._tokens(t) for t in texts]
+                if yuv:
+                    clip = tuple(p[start:start + chunk] for p in frames)
+                    t = clip[0].shape[0]
+                else:
+                    clip = frames[start:start + chunk]
+                    t = clip.shape[0]
+                T = pick_time_bucket(t, self.time_buckets)
+                pixels = self._pixel_buffer(clip, T, H, W, fh, fw)
+                pad = self._get_pad(T, H, W, fh, fw)
+                if yuv:
+                    pixels = _yuv420_to_normalized(*pixels, pad, self._mean, self._std)
+                elif pixels.dtype == torch.uint8:
+                    pixels = _normalize_u8_in_graph(pixels, pad, self._mean, self._std)
             feats = model.backbone_features(pixels, pad)
             outs = []
             for ids, msk in toks:
@@ -394,32 +405,39 @@ class InferenceEngine:
                 outs.append((scores[:t].sum(0), logits, boxes))
             chunks.append((outs, t))
 
-        stat = dict(H=H, W=W, fh=fh, fw=fw, oh=oh, ow=ow, want_probs=return_probs,
-                    pack=self.pack_masks and not return_probs,
-                    probs_dtype=self.probs_dtype)
-        results = []
-        for k in range(len(texts)):
-            qs = _select_in_graph([outs[k][0] for outs, _ in chunks], trajectory)
-            masks = torch.cat([_finalize_masks(outs[k][1], q, **stat)[:t]
-                               for (outs, t), q in zip(chunks, qs)])
-            boxes = None
-            if return_boxes:
-                boxes = _to_host(torch.cat(
-                    [outs[k][2].index_select(1, q.view(1))[:t, 0].float()
-                     for (outs, t), q in zip(chunks, qs)]))
-            results.append((_to_host(masks), boxes))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        with span("soc.engine.finalize"):
+            stat = dict(H=H, W=W, fh=fh, fw=fw, oh=oh, ow=ow, want_probs=return_probs,
+                        pack=self.pack_masks and not return_probs,
+                        probs_dtype=self.probs_dtype)
+            results = []
+            for k in range(len(texts)):
+                qs = _select_in_graph([outs[k][0] for outs, _ in chunks], trajectory)
+                masks = torch.cat([_finalize_masks(outs[k][1], q, **stat)[:t]
+                                   for (outs, t), q in zip(chunks, qs)])
+                boxes = None
+                if return_boxes:
+                    boxes = _to_host(torch.cat(
+                        [outs[k][2].index_select(1, q.view(1))[:t, 0].float()
+                         for (outs, t), q in zip(chunks, qs)]))
+                results.append((_to_host(masks), boxes))
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
         return dict(results=results, event=event, oh=oh, ow=ow,
                     return_probs=return_probs, return_boxes=return_boxes)
 
     def _collect_video(self, handle: dict) -> List:
         """Wait for one dispatched video's copies and convert to the public
         contract."""
-        if handle["event"] is not None:
-            handle["event"].synchronize()
+        with span("soc.engine.collect"):
+            with span("soc.engine.wait"):
+                if handle["event"] is not None:
+                    handle["event"].synchronize()
+            with span("soc.engine.unpack"):
+                return self._unpack(handle)
+
+    def _unpack(self, handle: dict) -> List:
         oh, ow = handle["oh"], handle["ow"]
         out = []
         for masks, boxes in handle["results"]:

@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from ..ops import ms_deform_attn
 from ..utils.boxes import inverse_sigmoid
+from ..utils.logging import span
 from .common import MLP, Dropout, LayerNorm, Linear, MultiheadAttention, get_activation
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -272,74 +273,76 @@ class DeformableTransformer(nn.Module):
         (B*T, H, W) True=pad; query_embed (Nq, C), None when two_stage;
         bbox_embed: the per-decoder-layer box heads; rng: the dropout
         generator (None: no dropout)."""
-        spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
-        src_flat = torch.cat([s.reshape(s.shape[0], -1, s.shape[-1]) for s in srcs], 1)
-        mask_flat = torch.cat([m.reshape(m.shape[0], -1) for m in masks], 1)
-        pos_flat = torch.cat(
-            [p.reshape(p.shape[0], -1, p.shape[-1])
-             + self.level_embed[lvl][None, None].to(self.dtype)
-             for lvl, p in enumerate(pos_embeds)], 1)
-        valid_ratios = compute_valid_ratios(masks)  # (B*T, L, 2)
+        with span("soc.head.encoder"):
+            spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
+            src_flat = torch.cat([s.reshape(s.shape[0], -1, s.shape[-1]) for s in srcs], 1)
+            mask_flat = torch.cat([m.reshape(m.shape[0], -1) for m in masks], 1)
+            pos_flat = torch.cat(
+                [p.reshape(p.shape[0], -1, p.shape[-1])
+                 + self.level_embed[lvl][None, None].to(self.dtype)
+                 for lvl, p in enumerate(pos_embeds)], 1)
+            valid_ratios = compute_valid_ratios(masks)  # (B*T, L, 2)
 
-        enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        memory = src_flat
-        for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat, rng)
+            enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
+            memory = src_flat
+            for layer in self.encoder.layers:
+                memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat, rng)
 
-        B = memory.shape[0]
-        enc_outputs = None
-        if self.two_stage:
-            output_memory, output_proposals = self.gen_encoder_output_proposals(
-                memory, mask_flat, spatial_shapes)
-            enc_class = self.enc_class_embed(output_memory).float()
-            enc_coord_unact = (self.enc_bbox_embed(output_memory).float()
-                               + output_proposals)
-            score = torch.where(torch.isfinite(output_proposals[..., 0]),
-                                enc_class[..., 0], float("-inf"))
-            k = min(self.two_stage_num_proposals, score.shape[1])
-            topk_idx = torch.topk(score, k, dim=1).indices
-            topk_coords_unact = torch.gather(
-                enc_coord_unact, 1, topk_idx[..., None].expand(B, k, 4)).detach()
-            reference_points = torch.sigmoid(topk_coords_unact)  # (B, K, 4)
-            pos_trans_out = self.pos_trans_norm(self.pos_trans(
-                proposal_pos_embed(topk_coords_unact, self.d_model).to(self.dtype)))
-            qe, tgt = torch.chunk(pos_trans_out, 2, dim=-1)
-            enc_outputs = (enc_class, enc_coord_unact)
-        else:
-            Nq = query_embed.shape[0]
-            qe = query_embed[None].expand(B, Nq, query_embed.shape[1]).to(self.dtype)
-            tgt = torch.zeros_like(qe)
-            reference_points = torch.sigmoid(self.reference_points(qe).float())
-        init_reference = reference_points
+            B = memory.shape[0]
+            enc_outputs = None
+            if self.two_stage:
+                output_memory, output_proposals = self.gen_encoder_output_proposals(
+                    memory, mask_flat, spatial_shapes)
+                enc_class = self.enc_class_embed(output_memory).float()
+                enc_coord_unact = (self.enc_bbox_embed(output_memory).float()
+                                   + output_proposals)
+                score = torch.where(torch.isfinite(output_proposals[..., 0]),
+                                    enc_class[..., 0], float("-inf"))
+                k = min(self.two_stage_num_proposals, score.shape[1])
+                topk_idx = torch.topk(score, k, dim=1).indices
+                topk_coords_unact = torch.gather(
+                    enc_coord_unact, 1, topk_idx[..., None].expand(B, k, 4)).detach()
+                reference_points = torch.sigmoid(topk_coords_unact)  # (B, K, 4)
+                pos_trans_out = self.pos_trans_norm(self.pos_trans(
+                    proposal_pos_embed(topk_coords_unact, self.d_model).to(self.dtype)))
+                qe, tgt = torch.chunk(pos_trans_out, 2, dim=-1)
+                enc_outputs = (enc_class, enc_coord_unact)
+        with span("soc.head.decoder"):
+            if not self.two_stage:
+                Nq = query_embed.shape[0]
+                qe = query_embed[None].expand(B, Nq, query_embed.shape[1]).to(self.dtype)
+                tgt = torch.zeros_like(qe)
+                reference_points = torch.sigmoid(self.reference_points(qe).float())
+            init_reference = reference_points
 
-        hs_list, ref_list = [], []
-        for lid, layer in enumerate(self.decoder.layers):
-            if reference_points.shape[-1] == 4:
-                ref_input = (reference_points[:, :, None]
-                             * torch.cat([valid_ratios, valid_ratios], -1)[:, None])
-            else:
-                ref_input = reference_points[:, :, None] * valid_ratios[:, None]
-            tgt, _, _ = layer(tgt, qe, ref_input, memory, spatial_shapes, mask_flat, rng)
-            # box refinement (every config refines)
-            tmp = bbox_embed[lid](tgt).float()
-            if reference_points.shape[-1] == 4:
-                new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
-            else:
-                xy = tmp[..., :2] + inverse_sigmoid(reference_points)
-                new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], -1))
-            # no gradient through the refined references (JAX stop_gradient)
-            reference_points = new_ref.detach()
-            hs_list.append(tgt)
-            ref_list.append(reference_points)
+            hs_list, ref_list = [], []
+            for lid, layer in enumerate(self.decoder.layers):
+                if reference_points.shape[-1] == 4:
+                    ref_input = (reference_points[:, :, None]
+                                 * torch.cat([valid_ratios, valid_ratios], -1)[:, None])
+                else:
+                    ref_input = reference_points[:, :, None] * valid_ratios[:, None]
+                tgt, _, _ = layer(tgt, qe, ref_input, memory, spatial_shapes, mask_flat, rng)
+                # box refinement (every config refines)
+                tmp = bbox_embed[lid](tgt).float()
+                if reference_points.shape[-1] == 4:
+                    new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+                else:
+                    xy = tmp[..., :2] + inverse_sigmoid(reference_points)
+                    new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], -1))
+                # no gradient through the refined references (JAX stop_gradient)
+                reference_points = new_ref.detach()
+                hs_list.append(tgt)
+                ref_list.append(reference_points)
 
-        hs = torch.stack(hs_list)  # (Lyr, B*T, Nq, C)
-        inter_references = torch.stack(ref_list)  # (Lyr, B*T, Nq, 2|4)
+            hs = torch.stack(hs_list)  # (Lyr, B*T, Nq, C)
+            inter_references = torch.stack(ref_list)  # (Lyr, B*T, Nq, 2|4)
 
-        # encoder memory back into maps for the first L-1 levels (FPN inputs)
-        memory_features, start = [], 0
-        for lvl in range(self.num_feature_levels - 1):
-            H, W = spatial_shapes[lvl]
-            memory_features.append(
-                memory[:, start:start + H * W].reshape(B, H, W, self.d_model))
-            start += H * W
+            # encoder memory back into maps for the first L-1 levels (FPN inputs)
+            memory_features, start = [], 0
+            for lvl in range(self.num_feature_levels - 1):
+                H, W = spatial_shapes[lvl]
+                memory_features.append(
+                    memory[:, start:start + H * W].reshape(B, H, W, self.d_model))
+                start += H * W
         return hs, memory_features, init_reference, inter_references, enc_outputs

@@ -33,6 +33,7 @@ import torch.nn as nn
 
 from ..ops import downsample_mask_nearest
 from ..utils.boxes import inverse_sigmoid
+from ..utils.logging import span
 from .common import MLP, MMF, Conv2d, Embedding, FeatureResizer, GroupNorm, Linear
 from .deformable_transformer import DeformableTransformer
 from .position_encoding import position_embedding_sine_1d, position_embedding_sine_2d
@@ -168,8 +169,9 @@ class SOC(nn.Module):
         """The text-independent stage: pixels (T, B, H, W, 3) -> b-major
         (B*T, Hi, Wi, Ci) maps per level. `pad_mask` is unused; it keeps the
         stage's signature that of the whole clip. Training applies drop path."""
-        video = pixels.permute(1, 0, 2, 3, 4).to(self.dtype)
-        return self.backbone[0].body(video, self._dropout_rng(training, rng))
+        with span("soc.backbone"):
+            video = pixels.permute(1, 0, 2, 3, 4).to(self.dtype)
+            return self.backbone[0].body(video, self._dropout_rng(training, rng))
 
     def head(self, features, pad_mask: torch.Tensor, text_ids: torch.Tensor,
              text_mask: torch.Tensor, sample_sizes: Optional[torch.Tensor] = None,
@@ -178,124 +180,135 @@ class SOC(nn.Module):
         """The text-dependent stage: text encoding, fusion, deformable
         transformer, VOC, heads, dynamic masks. pad_mask (T, B, H, W) True on
         padding; text_ids/text_mask (B, S)."""
+        with span("soc.head"):
+            return self._head(features, pad_mask, text_ids, text_mask, sample_sizes,
+                              valid_indices, training, rng)
+
+    def _head(self, features, pad_mask, text_ids, text_mask, sample_sizes, valid_indices,
+              training, rng) -> Dict[str, torch.Tensor]:
         Tfull, B, H, W = pad_mask.shape
         C, dt = self.d_model, self.dtype
         rng = self._dropout_rng(training, rng)
 
-        text_word_features, text_sentence_feature, txt_pad_mask = self.encode_text(
-            text_ids, text_mask, rng)
-        text_pos = position_embedding_sine_1d(txt_pad_mask, C).to(dt)
+        with span("soc.head.text"):
+            text_word_features, text_sentence_feature, txt_pad_mask = self.encode_text(
+                text_ids, text_mask, rng)
+            text_pos = position_embedding_sine_1d(txt_pad_mask, C).to(dt)
 
-        pad_bt = pad_mask.permute(1, 0, 2, 3).reshape(B * Tfull, H, W)
-        feat_masks = [downsample_mask_nearest(pad_bt, f.shape[1], f.shape[2])
-                      for f in features]
-        if valid_indices is not None:
-            # keep only the annotated frames; T collapses to 1
-            rows = torch.arange(B, device=pad_mask.device) * Tfull + valid_indices
-            features = [f[rows] for f in features]
-            feat_masks = [m[rows] for m in feat_masks]
-            pad_bt = pad_bt[rows]
-            T = 1
-        else:
-            T = Tfull
+        with span("soc.head.fusion"):
+            pad_bt = pad_mask.permute(1, 0, 2, 3).reshape(B * Tfull, H, W)
+            feat_masks = [downsample_mask_nearest(pad_bt, f.shape[1], f.shape[2])
+                          for f in features]
+            if valid_indices is not None:
+                # keep only the annotated frames; T collapses to 1
+                rows = torch.arange(B, device=pad_mask.device) * Tfull + valid_indices
+                features = [f[rows] for f in features]
+                feat_masks = [m[rows] for m in feat_masks]
+                pad_bt = pad_bt[rows]
+                T = 1
+            else:
+                T = Tfull
 
-        srcs, masks, poses, langs = [], [], [], []
-        for l, (feat, fmask) in enumerate(zip(features[-3:], feat_masks[-3:])):
-            conv, gn = self.input_proj[l]
-            src = gn(conv(feat))  # (B*T, h, w, C)
-            _, h, w, _ = src.shape
-            pos_l = position_embedding_sine_2d(fmask, C // 2).to(dt)
-            seq = src.reshape(B, T * h * w, C)
-            fused = self.vlf(seq, text_word_features,
-                             memory_key_padding_mask=txt_pad_mask, pos=text_pos)
-            # the reference passes the vision 2D sine PE as the memory pos
-            lan = self.lvf(text_word_features, seq,
-                           memory_key_padding_mask=fmask.reshape(B, T * h * w),
-                           pos=pos_l.reshape(B, T * h * w, C))
-            srcs.append(fused.reshape(B * T, h, w, C))
-            masks.append(fmask)
-            poses.append(pos_l)
-            langs.append(lan)
+            srcs, masks, poses, langs = [], [], [], []
+            for l, (feat, fmask) in enumerate(zip(features[-3:], feat_masks[-3:])):
+                conv, gn = self.input_proj[l]
+                src = gn(conv(feat))  # (B*T, h, w, C)
+                _, h, w, _ = src.shape
+                pos_l = position_embedding_sine_2d(fmask, C // 2).to(dt)
+                seq = src.reshape(B, T * h * w, C)
+                fused = self.vlf(seq, text_word_features,
+                                 memory_key_padding_mask=txt_pad_mask, pos=text_pos)
+                # the reference passes the vision 2D sine PE as the memory pos
+                lan = self.lvf(text_word_features, seq,
+                               memory_key_padding_mask=fmask.reshape(B, T * h * w),
+                               pos=pos_l.reshape(B, T * h * w, C))
+                srcs.append(fused.reshape(B * T, h, w, C))
+                masks.append(fmask)
+                poses.append(pos_l)
+                langs.append(lan)
 
-        for l in range(3, self.num_feature_levels):
-            conv, gn = self.input_proj[l]
-            src = gn(conv(features[-1] if l == 3 else srcs[-1]))
-            _, h, w, _ = src.shape
-            m = downsample_mask_nearest(pad_bt, h, w)
-            pos_l = position_embedding_sine_2d(m, C // 2).to(dt)
-            fused = self.vlf(src.reshape(B, T * h * w, C), text_word_features,
-                             memory_key_padding_mask=txt_pad_mask, pos=text_pos)
-            srcs.append(fused.reshape(B * T, h, w, C))
-            masks.append(m)
-            poses.append(pos_l)
+            for l in range(3, self.num_feature_levels):
+                conv, gn = self.input_proj[l]
+                src = gn(conv(features[-1] if l == 3 else srcs[-1]))
+                _, h, w, _ = src.shape
+                m = downsample_mask_nearest(pad_bt, h, w)
+                pos_l = position_embedding_sine_2d(m, C // 2).to(dt)
+                fused = self.vlf(src.reshape(B, T * h * w, C), text_word_features,
+                                 memory_key_padding_mask=txt_pad_mask, pos=text_pos)
+                srcs.append(fused.reshape(B * T, h, w, C))
+                masks.append(m)
+                poses.append(pos_l)
 
+        # the transformer opens soc.head.encoder and soc.head.decoder
         query_embed = None if self.query_embed is None else self.query_embed.weight
         hs, memory_features, init_reference, inter_references, enc_outputs = (
             self.transformer(srcs, masks, poses, query_embed, self.bbox_embed, rng))
         Lyr, Nq = hs.shape[0], hs.shape[2]
 
-        # sentence feature for the vl loss: mean of the last fused level's
-        # non-pad text tokens, in float32
-        valid = (~txt_pad_mask).float()[..., None]
-        text_features = (langs[-1].float() * valid).sum(1) / valid.sum(1).clamp(min=1.0)
-
-        # rows are b-major (b t); a slip to t-major here still passes at B = 1,
-        # which is why the parity tests run at B = 2
-        hs_tb = hs.view(Lyr, B, T, Nq, C).permute(0, 2, 1, 3, 4)  # (L, T, B, Nq, C)
-        # (Lyr, B, Nq, C) in training; (1, B, Nq, C), the last layer's, at
-        # inference, broadcast back over the layers
-        voc_hs = self.voc(hs_tb, text_sentence_feature, training, rng)
-        if training or not self.vl_loss:
-            emit_layers = tuple(range(Lyr))
-        else:
-            emit_layers = (0,)
-        if not training:
-            voc_hs = voc_hs.expand(Lyr, B, Nq, C)
-        hs_voc = hs_tb + voc_hs[:, None]
-        hs_voc_flat = hs_voc.permute(0, 2, 1, 3, 4).reshape(Lyr, B * T, Nq, C)
-
-        cls_list, box_list = [], []
-        for lvl in emit_layers:
-            reference = init_reference if lvl == 0 else inter_references[lvl - 1]
-            reference = inverse_sigmoid(reference)
-            tmp = self.bbox_embed[lvl](hs_voc_flat[lvl]).float()
-            if reference.shape[-1] == 4:
-                tmp = tmp + reference
+        with span("soc.head.voc"):
+            # rows are b-major (b t); a slip to t-major here still passes at B = 1,
+            # which is why the parity tests run at B = 2
+            hs_tb = hs.view(Lyr, B, T, Nq, C).permute(0, 2, 1, 3, 4)  # (L, T, B, Nq, C)
+            # (Lyr, B, Nq, C) in training; (1, B, Nq, C), the last layer's, at
+            # inference, broadcast back over the layers
+            voc_hs = self.voc(hs_tb, text_sentence_feature, training, rng)
+            if training or not self.vl_loss:
+                emit_layers = tuple(range(Lyr))
             else:
-                tmp = torch.cat([tmp[..., :2] + reference, tmp[..., 2:]], -1)
-            box_list.append(torch.sigmoid(tmp))
-            cls_list.append(self.class_embed[lvl](hs_voc_flat[lvl]))
-        outputs_class = torch.stack(cls_list)  # (Le, B*T, Nq, K)
-        outputs_coord = torch.stack(box_list)  # (Le, B*T, Nq, 4)
+                emit_layers = (0,)
+            if not training:
+                voc_hs = voc_hs.expand(Lyr, B, Nq, C)
+            hs_voc = hs_tb + voc_hs[:, None]
+            hs_voc_flat = hs_voc.permute(0, 2, 1, 3, 4).reshape(Lyr, B * T, Nq, C)
 
-        # FPN mask features at stride 4
-        mask_feat = self.spatial_decoder(
-            memory_features[-1], [memory_features[1], memory_features[0], features[0]])
-        hm, wm = mask_feat.shape[1:3]
-        mask_features = mask_feat.reshape(B, T, hm, wm, self.mask_kernels_dim)
-        image_size = (H, W) if sample_sizes is None else sample_sizes
+        with span("soc.head.outputs"):
+            cls_list, box_list = [], []
+            for lvl in emit_layers:
+                reference = init_reference if lvl == 0 else inter_references[lvl - 1]
+                reference = inverse_sigmoid(reference)
+                tmp = self.bbox_embed[lvl](hs_voc_flat[lvl]).float()
+                if reference.shape[-1] == 4:
+                    tmp = tmp + reference
+                else:
+                    tmp = torch.cat([tmp[..., :2] + reference, tmp[..., 2:]], -1)
+                box_list.append(torch.sigmoid(tmp))
+                cls_list.append(self.class_embed[lvl](hs_voc_flat[lvl]))
+            outputs_class = torch.stack(cls_list)  # (Le, B*T, Nq, K)
+            outputs_coord = torch.stack(box_list)  # (Le, B*T, Nq, 4)
 
-        mask_list = []
-        for lvl in emit_layers:
-            params = self.controller(hs_voc_flat[lvl]).reshape(B, T * Nq,
-                                                               self.num_gen_params)
-            refs = inter_references[lvl][..., :2].reshape(B, T * Nq, 2)
-            seg = dynamic_mask_with_coords(
-                mask_features, params, refs, image_size,
-                channels=self.dynamic_mask_channels, num_layers=self.controller_layers,
-                rel_coord=self.rel_coord)
-            mask_list.append(seg.view(B, T, Nq, hm, wm).transpose(0, 1))
-        Le = len(emit_layers)
-        out = {
-            "pred_masks": torch.stack(mask_list),
-            "pred_cls": outputs_class.view(Le, B, T, Nq, -1).transpose(1, 2),
-            "pred_boxes": outputs_coord.view(Le, B, T, Nq, 4).transpose(1, 2),
-            "pred_logit": voc_hs[list(emit_layers)],
-            "text_sentence_feature": text_features,
-        }
-        if enc_outputs is not None:
-            out["enc_outputs"] = {"pred_cls": enc_outputs[0],
-                                  "pred_boxes_unact": enc_outputs[1]}
+            # FPN mask features at stride 4
+            mask_feat = self.spatial_decoder(
+                memory_features[-1], [memory_features[1], memory_features[0], features[0]])
+            hm, wm = mask_feat.shape[1:3]
+            mask_features = mask_feat.reshape(B, T, hm, wm, self.mask_kernels_dim)
+            image_size = (H, W) if sample_sizes is None else sample_sizes
+
+            mask_list = []
+            for lvl in emit_layers:
+                params = self.controller(hs_voc_flat[lvl]).reshape(B, T * Nq,
+                                                                   self.num_gen_params)
+                refs = inter_references[lvl][..., :2].reshape(B, T * Nq, 2)
+                seg = dynamic_mask_with_coords(
+                    mask_features, params, refs, image_size,
+                    channels=self.dynamic_mask_channels, num_layers=self.controller_layers,
+                    rel_coord=self.rel_coord)
+                mask_list.append(seg.view(B, T, Nq, hm, wm).transpose(0, 1))
+
+            # sentence feature for the vl loss: mean of the last fused level's
+            # non-pad text tokens, in float32
+            valid = (~txt_pad_mask).float()[..., None]
+            text_features = (langs[-1].float() * valid).sum(1) / valid.sum(1).clamp(min=1.0)
+            Le = len(emit_layers)
+            out = {
+                "pred_masks": torch.stack(mask_list),
+                "pred_cls": outputs_class.view(Le, B, T, Nq, -1).transpose(1, 2),
+                "pred_boxes": outputs_coord.view(Le, B, T, Nq, 4).transpose(1, 2),
+                "pred_logit": voc_hs[list(emit_layers)],
+                "text_sentence_feature": text_features,
+            }
+            if enc_outputs is not None:
+                out["enc_outputs"] = {"pred_cls": enc_outputs[0],
+                                      "pred_boxes_unact": enc_outputs[1]}
         return out
 
     def forward(self, pixels: torch.Tensor, pad_mask: torch.Tensor,

@@ -1,7 +1,8 @@
-"""Training telemetry (copy of the metric helpers of
-neurips2023_soc_tpu/utils/logging.py): window-smoothed values, a logger that
-formats them, a step timer, a torch.profiler trace of a span of steps (torch
-is imported only by the trace), and the print gate of the ranks other than 0."""
+"""Telemetry (the metric helpers are a copy of
+neurips2023_soc_tpu/utils/logging.py's): window-smoothed values, a logger that
+formats them, a torch.profiler trace of a span of steps or videos, the named
+spans the program opens inside such a trace, and the print gate of the ranks
+other than 0."""
 from __future__ import annotations
 
 import contextlib
@@ -11,6 +12,10 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class SmoothedValue:
@@ -77,7 +82,6 @@ def profile_trace(log_dir: Optional[str], enabled: bool = True):
     if not enabled or not log_dir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -89,12 +93,15 @@ def profile_trace(log_dir: Optional[str], enabled: bool = True):
     prof.export_chrome_trace(str(Path(log_dir) / f"trace_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def step_timer(metrics: MetricLogger, name: str = "step_time"):
-    """Host seconds of the enclosed code into `metrics` under `name`."""
-    t0 = time.perf_counter()
-    yield
-    metrics.update(**{name: time.perf_counter() - t0})
+def span(name: str):
+    """A context that names the enclosed code in a running torch.profiler
+    trace: a `record_function` range, kept by the profiler beside the kernels
+    the code launches, on the trace's clock, and written out when the
+    profiler stops. With no profiler recording it is a shared no-op context,
+    one flag read. The program's span names start with `soc.`."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def setup_for_distributed(is_main: Optional[bool] = None) -> None:

@@ -98,11 +98,11 @@ def test_valid_split_and_test_transforms_equal_jax(ytvos_valid_root, tmp_path):
         assert got[3] == want[3]
 
 
-def _cfg(ytvos_valid_root, tmp_path, out_dir):
+def _cfg(ytvos_valid_root, tmp_path, out_dir, **extra):
     return _tiny_cfg(tmp_path, dataset_name="ref_youtube_vos", img_folder=str(ytvos_valid_root),
                      eval_short_size=48, eval_max_size=64, eval_size_buckets=[[48, 64]],
                      time_buckets=[4], text_bucket=12, check_dataset_counts=False,
-                     output_dir=str(out_dir), swin_attn_impl="pallas")
+                     output_dir=str(out_dir), swin_attn_impl="pallas", **extra)
 
 
 def test_infer_refytb_cli_end_to_end(ytvos_valid_root, tmp_path):
@@ -140,6 +140,28 @@ def test_infer_refytb_cli_end_to_end(ytvos_valid_root, tmp_path):
                 out_dir / "Annotations" / vid / ds.exp_id(i) / f"{f}.png")) for f in FRAMES])
             assert got.shape == (4, 48, 64) and set(np.unique(got)) <= {0, 255}
             np.testing.assert_array_equal(got, w * 255)
+
+
+def test_infer_refytb_profile_steps_writes_a_trace_of_the_spans(ytvos_valid_root, tmp_path):
+    """profile_steps = 1 traces video 1 (vidB; video 0 warms up): one Chrome
+    trace under output_dir/profile with its dispatch and head, and the
+    collects of both videos (video 0's falls after video 1's dispatch)."""
+    out_dir = tmp_path / "out"
+    infer_refytb.main(["-c", _cfg(ytvos_valid_root, tmp_path, out_dir, profile_steps=1),
+                       "--device", "cpu"])
+    traces = list((out_dir / "profile").glob("*.json"))
+    assert len(traces) == 1
+    names = [e["name"] for e in json.loads(traces[0].read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation" and e["name"].startswith("soc.")]
+    counts = {n: names.count(n) for n in set(names)}
+    assert {k: counts.get(k) for k in ("soc.engine.dispatch", "soc.engine.upload",
+                                       "soc.backbone", "soc.head", "soc.engine.finalize",
+                                       "soc.engine.collect", "soc.engine.wait",
+                                       "soc.engine.unpack")} == {
+        "soc.engine.dispatch": 1, "soc.engine.upload": 1, "soc.backbone": 1, "soc.head": 1,
+        "soc.engine.finalize": 1, "soc.engine.collect": 2, "soc.engine.wait": 2,
+        "soc.engine.unpack": 2}
+    assert (out_dir / "submission.zip").exists()
 
 
 def test_infer_refytb_refuses_an_orbax_directory(ytvos_valid_root, tmp_path):

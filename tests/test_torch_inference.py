@@ -2,6 +2,9 @@
 tiny model of tests/test_inference.py with converted parameters, and the
 engine's own contracts: multi-expression reuse, bit-packing, and ownership of
 the caller's frames."""
+import contextlib
+import itertools
+
 import jax
 import numpy as np
 import pytest
@@ -141,3 +144,66 @@ def test_pixel_buffer_never_aliases_the_frames(engine):
     buf = engine._pixel_buffer(frames, 8, 48, 64, 48, 64)  # exact bucket fit
     assert not np.shares_memory(buf.numpy(), frames)
     np.testing.assert_array_equal(buf.numpy()[:, 0], frames)
+
+
+HEAD_PARTS = ("text", "fusion", "encoder", "decoder", "voc", "outputs")
+
+
+def _inside(child, parents):
+    """The parent ranges that hold the child range."""
+    return [p for p in parents if p[1] <= child[1] and child[2] <= p[2]]
+
+
+@pytest.mark.parametrize("t, chunks", [(7, 1), (12, 2)])
+def test_spans_of_one_video(engine, monkeypatch, t, chunks):
+    """With a profiler recording, one video of two expressions opens the
+    engine's and the model's spans, each child inside its parent: per chunk
+    an upload, a backbone and a head per expression with its six parts; then
+    one finalize, and one collect holding one wait and one unpack. The
+    ranges are taken where the spans hand them to torch.profiler (a real
+    profiler records some 23,000 events a video of the tiny model, 7 s on
+    the CPU; tests/test_torch_spans.py and the CLI and trainer tests cover
+    its trace)."""
+    ranges, clock = [], itertools.count()
+
+    @contextlib.contextmanager
+    def record_function(name):
+        r = [name, next(clock), None]
+        ranges.append(r)
+        yield
+        r[2] = next(clock)
+
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", True)
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    engine.infer_video_multi(_video(7, t=t), ["a thing", "another thing"])
+    by = {}
+    for r in ranges:
+        by.setdefault(r[0], []).append(r)
+    want = {"soc.engine.dispatch": 1, "soc.engine.upload": chunks, "soc.backbone": chunks,
+            "soc.head": 2 * chunks, "soc.engine.finalize": 1, "soc.engine.collect": 1,
+            "soc.engine.wait": 1, "soc.engine.unpack": 1,
+            **{f"soc.head.{p}": 2 * chunks for p in HEAD_PARTS}}
+    assert {k: len(v) for k, v in by.items()} == want
+    parent_of = {"soc.engine.upload": "soc.engine.dispatch", "soc.backbone": "soc.engine.dispatch",
+                 "soc.head": "soc.engine.dispatch", "soc.engine.finalize": "soc.engine.dispatch",
+                 "soc.engine.wait": "soc.engine.collect",
+                 "soc.engine.unpack": "soc.engine.collect",
+                 **{f"soc.head.{p}": "soc.head" for p in HEAD_PARTS}}
+    for child, parent in parent_of.items():
+        for r in by[child]:
+            assert len(_inside(r, by[parent])) == 1, (child, parent)
+    for head in by["soc.head"]:
+        assert sorted(r[0] for r in ranges if r[0].startswith("soc.head.")
+                      and _inside(r, [head])) == sorted(f"soc.head.{p}" for p in HEAD_PARTS)
+
+
+def test_no_span_without_a_profiler(engine, monkeypatch):
+    """With no profiler recording, a video's dispatch and collect never open
+    a record_function range."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    masks = engine.infer_video_multi(_video(8, t=3), ["a thing", "another thing"])
+    assert [m.shape for m in masks] == [(3, 40, 56)] * 2

@@ -1,0 +1,71 @@
+"""utils/logging.py:span, the program's named ranges in a torch.profiler
+trace: a shared no-op with no profiler recording, a closed range when the
+code inside raises, and (on the card) a dispatch whose spans and head hold
+no hidden host sync. Imports no JAX (nor tests/torch_port_helpers.py, which
+does), so the card test runs where JAX is absent; its CPU tests do no
+torch-heavy work, so they take no thread share under xdist."""
+import numpy as np
+import pytest
+import torch
+
+from neurips2023_soc_torch.inference import InferenceEngine
+from neurips2023_soc_torch.models.common import init_weights
+from neurips2023_soc_torch.models.soc import SOC
+from neurips2023_soc_torch.utils.logging import span
+
+KW = dict(backbone_name="video-swin-t", d_model=64, num_queries=5, dim_feedforward=128,
+          enc_layers=1, dec_layers=2, voc_enc_layers=1, voc_dec_layers=1,
+          text_encoder_type="roberta-tiny")
+ENGINE = dict(text_encoder_type="roberta-tiny", text_bucket=8, size_buckets=((48, 64),),
+              time_buckets=(4, 8))
+
+
+def test_span_without_a_profiler_is_one_shared_no_op():
+    assert span("soc.a") is span("soc.b")
+    with span("soc.a"):
+        pass
+
+
+def test_span_closes_its_range_when_the_code_raises():
+    """Under a profiler an exception inside a span propagates, and the
+    profiler's trace holds the span's range closed before what ran next."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with pytest.raises(ValueError, match="inside the span"):
+            with span("soc.test.outer"):
+                with span("soc.test.inner"):
+                    torch.ones(4).add_(1)
+                    raise ValueError("inside the span")
+        torch.ones(4).mul_(2)
+    events = prof.events()
+    ranges = {e.name: e.time_range for e in events if e.name.startswith("soc.test.")}
+    assert set(ranges) == {"soc.test.outer", "soc.test.inner"}
+    outer, inner = ranges["soc.test.outer"], ranges["soc.test.inner"]
+    assert outer.start <= inner.start <= inner.end <= outer.end
+    after = [e.time_range.start for e in events if e.name == "aten::mul_"]
+    assert after and outer.end <= min(after)
+
+
+@pytest.mark.card
+@pytest.mark.xfail(strict=True, raises=RuntimeError, reason=(
+    "soc.head.outputs indexes voc_hs with a Python list (models/soc.py, "
+    "voc_hs[list(emit_layers)]): the index goes up from pageable host memory, a "
+    "host sync in every head call"))
+def test_dispatch_holds_no_hidden_host_sync():
+    """A warm dispatch of the tiny model on the card, under
+    torch.cuda.set_sync_debug_mode("error"): the upload, the backbone, every
+    head and the finalize queue their work without a host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card)")
+    model = init_weights(SOC(**KW), torch.Generator().manual_seed(0)).eval()
+    engine = InferenceEngine(model, device="cuda", **ENGINE)
+    frames = np.random.RandomState(0).randint(0, 256, (7, 40, 56, 3)).astype(np.uint8)
+    texts = ["a thing", "another thing"]
+    engine.infer_video_multi(frames, texts)  # builds the kernels, fills the caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = engine._dispatch_video(frames, texts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    masks = engine._collect_video(handle)
+    assert [m.shape for m in masks] == [(7, 40, 56)] * 2

@@ -26,7 +26,6 @@ from neurips2023_soc_torch.training import Trainer
 from neurips2023_soc_torch.training.checkpoint import (CheckpointManager, load_params_from_path,
                                                        load_pretrained,
                                                        save_reference_checkpoint)
-from neurips2023_soc_torch.utils.logging import MetricLogger, step_timer
 from neurips2023_soc_tpu.config import add_config_args as jax_add_config_args
 from neurips2023_soc_tpu.config import config_from_args as jax_config_from_args
 from neurips2023_soc_tpu.config import load_config as jax_load_config
@@ -306,18 +305,17 @@ def test_main_cli_synthetic_and_refusals(tmp_path, monkeypatch):
 
 def test_profile_steps_writes_a_trace(tmp_path):
     """profile_steps = 1 wraps step 1 of the first epoch in a torch.profiler
-    trace under output_dir/profile (a Chrome trace); step_timer records the
-    host seconds of what it encloses."""
+    trace under output_dir/profile (a Chrome trace) that holds the model's
+    spans."""
     cfg = load_config(TINY, overrides=dict(profile_steps=1, num_samples=4, window_size=2,
                                            output_dir=str(tmp_path / "out")))
     trainer, _ = cli_main.run(cfg, "train", device="cpu")
     assert len(trainer.history) == 2
     traces = list((tmp_path / "out" / "profile").glob("*.json"))
-    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
-    metrics = MetricLogger()
-    with step_timer(metrics, "load"):
-        sum(range(1000))
-    assert metrics.meters["load"].count == 1 and metrics.meters["load"].value > 0
+    assert len(traces) == 1
+    names = {e["name"] for e in json.loads(traces[0].read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"soc.backbone", "soc.head"} <= names
 
 
 def test_main_pretrain_single_frames(tmp_path):
