@@ -1695,6 +1695,9 @@ DAVIS_TEXTS = (  # object-major: exp id = obj * 4 + anno
     "the red ball crossing the field",
     "the blue box", "a blue box sliding down", "blue square object",
     "the blue box moving down the frame")
+# head calls per chunk of the 80 frames for the 8 texts, at most 256 frame rows
+# a call: 4 + 4 expressions in the 64-frame chunk, all 8 in the 16-frame one
+DAVIS_HEAD_CALLS = (2, 1)
 K3_PER_PASS_T = 12  # Video-Swin-T: 2 + 2 + 6 + 2 blocks
 SWIN_T_STAGES = {1: (3, 2), 2: (6, 2), 3: (12, 6), 4: (24, 2)}  # heads, blocks
 A2D_SAMPLES = 8
@@ -1849,7 +1852,7 @@ def davis_path(smi: str) -> dict:
                xla_attn=window_attention_torch.calls, k1=ms_deform_attn.launches,
                k1_plain=ms_deform_attn.plain_calls)
     want = dict(k3=K3_PER_PASS_T * chunks, k3_plain=0, xla_attn=0,
-                k1=MSDA_PER_CLIP * chunks * len(ds), k1_plain=0)
+                k1=MSDA_PER_CLIP * sum(DAVIS_HEAD_CALLS), k1_plain=0)
     if got != want:
         raise RuntimeError(f"[davis] kernel counts {got}, expected {want}")
     for a, m in enumerate(merged):
@@ -1886,7 +1889,7 @@ def davis_path(smi: str) -> dict:
     if len(k3_ratios) != K3_PER_PASS_T or max(k3_ratios) > 1.0:
         raise RuntimeError(f"[davis] K3 on the model's inputs: {len(k3_ratios)} calls, error / "
                            f"tolerance {k3_ratios}")
-    if len(k1_ratios) != MSDA_PER_CLIP * len(ds) or max(k1_ratios) > 1.0:
+    if len(k1_ratios) != MSDA_PER_CLIP * DAVIS_HEAD_CALLS[0] or max(k1_ratios) > 1.0:
         raise RuntimeError(f"[davis] K1 on the model's inputs: {len(k1_ratios)} calls, error / "
                            f"tolerance {k1_ratios}")
     log(f"[davis] first chunk ({chunk} frames): K3 on the model's {len(k3_ratios)} inputs, error "

@@ -2,12 +2,13 @@
 neurips2023_soc_tpu/inference.py:InferenceEngine).
 
 Per video: frames are copied into engine-owned staging buffers and uploaded;
-uint8 frames are normalized on the device; the backbone runs once per chunk
-and the text-dependent head once per expression; trajectory selection (the
-argmax of the whole-video score sum, or per chunk) and the finalize step
-(gather the chosen query, upsample to the bucket, crop, resize to the
-original size, sigmoid, threshold, bit-pack) all run on the device. Only the
-final masks (and, on request, the chosen (T, 4) boxes) come back.
+uint8 frames are normalized on the device; the backbone runs once per chunk,
+and the text-dependent head once per chunk for each group of expressions
+(`head_groups`), at B = the group's size; trajectory selection (the argmax of
+the whole-video score sum, or per chunk) and the finalize step (gather the
+chosen query, upsample to the bucket, crop, resize to the original size,
+sigmoid, threshold, bit-pack) all run on the device, per expression. Only
+the final masks (and, on request, the chosen (T, 4) boxes) come back.
 
 Nothing in a dispatch waits for the device: uploads go from pinned buffers
 with non_blocking copies, the results are copied back the same way into
@@ -53,6 +54,10 @@ from .utils.logging import span
 from .utils.padded import eval_size_buckets, pick_size_bucket, pick_time_bucket  # noqa: F401
 
 DEFAULT_TIME_BUCKETS = (8, 16, 32, 64)
+# frame rows (expressions x bucket frames) of one head call: bounds the head's
+# activations, which grow with B x T (the encoder's FFN holds B x T x tokens x
+# dim_feedforward)
+HEAD_ROWS = 256
 PIXEL_FORMATS = ("auto", "yuv420")
 PROBS_DTYPES = ("float32", "bfloat16", "uint8")
 # DAVIS palette (indices 0..N map through the standard DAVIS colormap)
@@ -142,11 +147,18 @@ def _finalize_masks(logits: torch.Tensor, q: torch.Tensor, *, H: int, W: int,
 
 
 def _extract_outputs(out: Dict[str, torch.Tensor]):
-    """Last emitted layer, batch entry 0: per-query scores (T, Nq) (max over
-    classes), bf16 stride-4 mask logits (T, Nq, h, w), boxes (T, Nq, 4)."""
-    scores = torch.sigmoid(out["pred_cls"][-1].float())[:, 0].amax(-1)
-    return (scores, out["pred_masks"][-1][:, 0].to(torch.bfloat16),
-            out["pred_boxes"][-1][:, 0])
+    """Last emitted layer, every batch entry: per-query scores (T, B, Nq) (max
+    over classes), bf16 stride-4 mask logits (T, B, Nq, h, w), boxes
+    (T, B, Nq, 4)."""
+    scores = torch.sigmoid(out["pred_cls"][-1].float()).amax(-1)
+    return (scores, out["pred_masks"][-1].to(torch.bfloat16), out["pred_boxes"][-1])
+
+
+def head_groups(n: int, T: int) -> List[range]:
+    """The expressions 0..n-1 of a chunk of T bucket frames as the consecutive
+    groups that share a head call: at most max(1, HEAD_ROWS // T) each."""
+    size = max(1, HEAD_ROWS // T)
+    return [range(lo, min(lo + size, n)) for lo in range(0, n, size)]
 
 
 def _select_in_graph(score_sums: List[torch.Tensor], trajectory: str) -> List[torch.Tensor]:
@@ -239,6 +251,9 @@ class InferenceEngine:
         self._pad_cache: Dict[tuple, torch.Tensor] = {}
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
+        # head calls dispatched, and the expressions they held
+        self.head_calls = 0
+        self.head_expressions = 0
 
     # ---------------- host -> device ----------------
     def _get_pad(self, T: int, H: int, W: int, fh: int, fw: int) -> torch.Tensor:
@@ -284,12 +299,12 @@ class InferenceEngine:
 
         return fill
 
-    def _tokens(self, text: str):
-        """Token ids and mask (1, S) on the device. On CUDA they ride pinned
-        blocks of PyTorch's host allocator, which reuses a block only after
-        its copy has completed."""
+    def _tokens(self, texts: Sequence[str]):
+        """Token ids and mask (n, S) of every text, in one tokenizer call, on
+        the device. On CUDA they ride pinned blocks of PyTorch's host
+        allocator, which reuses a block only after its copy has completed."""
         out = []
-        for a in self.tokenizer([text]):
+        for a in self.tokenizer(list(texts)):
             t = torch.from_numpy(np.array(a))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
@@ -320,8 +335,9 @@ class InferenceEngine:
                           return_probs: bool = False, trajectory: str = "video",
                           return_boxes: bool = False) -> List:
         """Every expression of one video over shared frames: the backbone
-        runs once per chunk, the head once per expression. Returns a list
-        parallel to `texts` of infer_video-shaped results."""
+        runs once per chunk, the head once per chunk for each group of
+        expressions (`head_groups`). Returns a list parallel to `texts` of
+        infer_video-shaped results."""
         return self._collect_video(self._dispatch_video(
             frames, texts, original_size=original_size, return_probs=return_probs,
             trajectory=trajectory, return_boxes=return_boxes))
@@ -376,15 +392,15 @@ class InferenceEngine:
             raise ValueError(f"YUV420 input needs even size buckets, got ({H}, {W})")
         oh, ow = (int(s) for s in (original_size or (fh, fw)))
         chunk = max(self.time_buckets)
-        toks = None
+        ids = msk = None
         model = self.model
 
         # per chunk: [(score sum over real frames, logits, boxes) per text], t
         chunks = []
         for start in range(0, T_total, chunk):
             with span("soc.engine.upload"):
-                if toks is None:
-                    toks = [self._tokens(t) for t in texts]
+                if ids is None:
+                    ids, msk = self._tokens(texts)
                 if yuv:
                     clip = tuple(p[start:start + chunk] for p in frames)
                     t = clip[0].shape[0]
@@ -400,9 +416,16 @@ class InferenceEngine:
                     pixels = _normalize_u8_in_graph(pixels, pad, self._mean, self._std)
             feats = model.backbone_features(pixels, pad)
             outs = []
-            for ids, msk in toks:
-                scores, logits, boxes = _extract_outputs(model.head(feats, pad, ids, msk))
-                outs.append((scores[:t].sum(0), logits, boxes))
+            for g in head_groups(len(texts), T):
+                B = len(g)
+                # the head's rows are b-major: each level's T rows once per expression
+                feats_b = feats if B == 1 else [f.repeat(B, 1, 1, 1) for f in feats]
+                scores, logits, boxes = _extract_outputs(model.head(
+                    feats_b, pad.expand(T, B, H, W), ids[g.start:g.stop], msk[g.start:g.stop]))
+                sums = scores[:t].sum(0)
+                outs.extend((sums[b], logits[:, b], boxes[:, b]) for b in range(B))
+                self.head_calls += 1
+                self.head_expressions += B
             chunks.append((outs, t))
 
         with span("soc.engine.finalize"):

@@ -303,7 +303,7 @@ class SOC(nn.Module):
                 "pred_masks": torch.stack(mask_list),
                 "pred_cls": outputs_class.view(Le, B, T, Nq, -1).transpose(1, 2),
                 "pred_boxes": outputs_coord.view(Le, B, T, Nq, 4).transpose(1, 2),
-                "pred_logit": voc_hs[list(emit_layers)],
+                "pred_logit": voc_hs[:len(emit_layers)],
                 "text_sentence_feature": text_features,
             }
             if enc_outputs is not None:

@@ -46,14 +46,11 @@ def test_span_closes_its_range_when_the_code_raises():
 
 
 @pytest.mark.card
-@pytest.mark.xfail(strict=True, raises=RuntimeError, reason=(
-    "soc.head.outputs indexes voc_hs with a Python list (models/soc.py, "
-    "voc_hs[list(emit_layers)]): the index goes up from pageable host memory, a "
-    "host sync in every head call"))
 def test_dispatch_holds_no_hidden_host_sync():
     """A warm dispatch of the tiny model on the card, under
-    torch.cuda.set_sync_debug_mode("error"): the upload, the backbone, every
-    head and the finalize queue their work without a host sync."""
+    torch.cuda.set_sync_debug_mode("error"): the upload, the backbone, the
+    head of both texts in one call and the finalize queue their work without
+    a host sync."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the card)")
     model = init_weights(SOC(**KW), torch.Generator().manual_seed(0)).eval()
@@ -62,6 +59,7 @@ def test_dispatch_holds_no_hidden_host_sync():
     texts = ["a thing", "another thing"]
     engine.infer_video_multi(frames, texts)  # builds the kernels, fills the caches
     torch.cuda.synchronize()
+    calls = engine.head_calls
     torch.cuda.set_sync_debug_mode("error")
     try:
         handle = engine._dispatch_video(frames, texts)
@@ -69,3 +67,4 @@ def test_dispatch_holds_no_hidden_host_sync():
         torch.cuda.set_sync_debug_mode("default")
     masks = engine._collect_video(handle)
     assert [m.shape for m in masks] == [(7, 40, 56)] * 2
+    assert engine.head_calls - calls == 1
