@@ -44,13 +44,15 @@ prints no result):
                also with q, k, v as the strided views of one fused qkv
                buffer, as the backbone passes them), a clamped window, a
                2D-Swin window, N = 512, N = 1 and a prime number of windows,
+               and at the 2D image Swin-L's four stage shapes of that clip
+               (window (1, 7, 7), N = 49, heads 6 to 48) masked and unmasked,
                with a bias of a trained table's spread (std 1.5):
                f32 rtol = atol = 2e-5; bf16 against the plain version in f32
                on the same bf16-rounded inputs, rtol 0 and atol two bf16 ulps
                of the largest expected magnitude; each case with N > 1 must
                fail its tolerance when the kernel is given a zeroed bias. K3
-               and SDPA are timed at the eight stage shapes and summed over
-               one clip's 24 blocks.
+               and SDPA are timed at the eight stage shapes of each backbone
+               and summed over one clip's 24 blocks.
   4. e2e     — the inference path: Video-Swin-B SOC (d_model 256, 20 queries,
                FFN 2048, 3+3 deformable layers, VOC 3+3, roberta-base, bf16)
                from a seeded random init, InferenceEngine.infer_videos over 3
@@ -756,16 +758,25 @@ def check_window_attention() -> dict:
     broadcast over the windows where there is no mask, the bias plus the
     per-window mask where there is) and the bound at the eight stage shapes (20
     back-to-back calls per timing, so the wrapper's host work does not count),
-    and their sums over one clip's 24 blocks."""
+    and their sums over one clip's 24 blocks. The same, bf16 masked and
+    unmasked, at the 2D image Swin-L's shapes of that clip (window (1, 7, 7),
+    N = 49: token grids 16 x 90 x 160 to 16 x 12 x 20, heads 6, 12, 24 and 48),
+    each with its control, timed and summed over Swin-L's 24 blocks."""
     win = (8, 7, 7)
     stages = {  # stage: (token grid, heads, blocks per clip, half of them shifted)
         1: ((16, 90, 160), 4, 2), 2: ((16, 45, 80), 8, 2), 3: ((16, 23, 40), 16, 18),
         4: ((16, 12, 20), 32, 2)}
+    swin_l = {f"Swin-L stage {s}": (grid, 6 * 2 ** (s - 1), blocks)
+              for s, (grid, _, blocks) in stages.items()}
     cases = []  # name, B_, H, (nW, N, ids), dtype, q/k/v as views of a fused qkv buffer
     for s, (grid, H, _) in stages.items():
         nW, N, ids = window_geometry(*grid, win, True)
         cases += [(f"stage {s} masked bf16", nW, H, (nW, N, ids), torch.bfloat16, False),
                   (f"stage {s} unmasked bf16", nW, H, (nW, N, None), torch.bfloat16, False)]
+    for stage, (grid, H, _) in swin_l.items():
+        nW, N, ids = window_geometry(*grid, (1, 7, 7), True)
+        cases += [(f"{stage} masked bf16", nW, H, (nW, N, ids), torch.bfloat16, False),
+                  (f"{stage} unmasked bf16", nW, H, (nW, N, None), torch.bfloat16, False)]
     s3 = window_geometry(16, 23, 40, win, True)
     s4 = window_geometry(16, 12, 20, win, False)
     clamp = window_geometry(4, 23, 40, win, True)  # T = 4 < 8: window (4, 7, 7)
@@ -811,18 +822,22 @@ def check_window_attention() -> dict:
         report[name] = {"err": err, "inputs": (q, k, v, bias, ids_t)}
         del got, want
     timed = {}
-    clip = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for s, (_, _, blocks) in stages.items():
-        for mask in ("masked", "unmasked"):
-            name = f"stage {s} {mask} bf16"
-            t = time_k3(*report[name]["inputs"], plain=s in (1, 3) and mask == "masked")
-            for key in clip:
-                clip[key] += blocks // 2 * t[key]
-            log_k3_time("kernels", name, report[name]["inputs"][0].shape, t)
-            timed[name] = t
-    log(f"[kernels] window_attention per 16 x {HEIGHT} x {WIDTH} clip (sum of launches x time "
-        f"over its {K3_PER_CLIP} blocks, half of them masked): kernel {clip['ms']:.4f} ms, "
-        f"SDPA {clip['library_ms']:.4f} ms, bound {clip['bound_ms']:.4f} ms")
+    for model, per_stage in (("Video-Swin-B", {f"stage {s}": v for s, v in stages.items()}),
+                             ("Swin-L", swin_l)):
+        clip = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for stage, (_, _, blocks) in per_stage.items():
+            for mask in ("masked", "unmasked"):
+                name = f"{stage} {mask} bf16"
+                t = time_k3(*report[name]["inputs"],
+                            plain=stage in ("stage 1", "stage 3") and mask == "masked")
+                for key in clip:
+                    clip[key] += blocks // 2 * t[key]
+                log_k3_time("kernels", name, report[name]["inputs"][0].shape, t)
+                timed[name] = t
+        log(f"[kernels] window_attention per {model} 16 x {HEIGHT} x {WIDTH} clip (sum of "
+            f"launches x time over its {K3_PER_CLIP} blocks, half of them masked): kernel "
+            f"{clip['ms']:.4f} ms, SDPA {clip['library_ms']:.4f} ms, bound "
+            f"{clip['bound_ms']:.4f} ms")
     return dict(name="window_attention_fwd", route="cuda",
                 note="bf16: tensor cores (mma.sync m16n8k16); f32: CUDA cores",
                 source="neurips2023_soc_torch/csrc/window_attention_fwd.cu",

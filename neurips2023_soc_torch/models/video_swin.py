@@ -3,14 +3,18 @@ neurips2023_soc_tpu/models/video_swin.py).
 
 Patch size (1, 4, 4), window (8, 7, 7) 3D shifted windows, 4 stages with
 PatchMerging applied after each stage's output is collected, so all four
-stride-4/8/16/32 maps are emitted per frame. The relative-position bias is a
-plain index gather into the table; the shift mask (additive -100 between
-regions) is derived on the device from small region-id tables that are made
-once per geometry. Window attention is `ops.window_attention_torch` with
-`attn_impl="xla"` (the default), and `ops.window_attention` (kernel K3 on the
-card, its plain version on the CPU) with `attn_impl="pallas"`, the JAX config
-value: a shifted block then passes the compact (nW, N) region ids and never
-builds the (nW, N, N) mask (JAX video_swin.py:211-221).
+stride-4/8/16/32 maps are emitted per frame. The 2D image Swin configs
+(`swin-*`) run the same blocks at window (1, 7, 7) with per-stage output
+norms; where a map is no larger than the window, the window shrinks to the
+map and the shift is dropped (Video-Swin's rule), where the image Swin pads.
+The relative-position bias is a plain index gather into the table; the shift
+mask (additive -100 between regions) is derived on the device from small
+region-id tables that are made once per geometry. Window attention is
+`ops.window_attention_torch` with `attn_impl="xla"` (the default), and
+`ops.window_attention` (kernel K3 on the card, its plain version on the CPU)
+with `attn_impl="pallas"`, the JAX config value: a shifted block then passes
+the compact (nW, N) region ids and never builds the (nW, N, N) mask (JAX
+video_swin.py:211-221).
 
 Layout: channels-last. Input (B, T, H, W, 3); outputs four per-frame maps
 [(B*T, H/4, W/4, C), ..., (B*T, H/32, W/32, 8C)].
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.window_attention import mask_from_ids, window_attention, window_attention_torch
+from ..utils.logging import span
 from .common import LayerNorm, Linear
 
 Window = Tuple[int, int, int]
@@ -291,28 +296,32 @@ class VideoSwinBackbone(nn.Module):
 
     def forward(self, video: torch.Tensor, rng: Optional[torch.Generator] = None):
         """video: (B, T, H, W, 3) -> list of 4 maps (B*T, Hi, Wi, Ci). With a
-        generator `rng`, drop path is applied (training)."""
+        generator `rng`, drop path is applied (training). Span
+        `soc.backbone.stage{s}` holds stage s: the patch embedding (s = 0) or
+        the PatchMerging into it, its blocks and its output norm."""
         B, T, H, W, _ = video.shape
         pd, ph, pw = self.patch_size
-        video = F.pad(video, (0, 0, 0, (-W) % pw, 0, (-H) % ph, 0, (-T) % pd))
-        x = self.patch_embed(video)
         outs = []
         for s, stage in enumerate(self.layers):
-            for block in stage.blocks:
-                keep = None
-                if rng is not None and block.drop_path > 0.0:
-                    keep = torch.rand(2, B, generator=rng, device=x.device) \
-                        < 1.0 - block.drop_path
-                if self.use_remat and torch.is_grad_enabled():
-                    x = torch.utils.checkpoint.checkpoint(block, x, keep,
-                                                          use_reentrant=False)
+            with span(f"soc.backbone.stage{s}"):
+                if s == 0:
+                    x = self.patch_embed(
+                        F.pad(video, (0, 0, 0, (-W) % pw, 0, (-H) % ph, 0, (-T) % pd)))
                 else:
-                    x = block(x, keep)
-            y = getattr(self, f"norm{s}")(x) if self.num_out_norms else x
-            Bc, Tc, Hc, Wc, Cc = y.shape
-            outs.append(y.reshape(Bc * Tc, Hc, Wc, Cc))
-            if s < len(self.downsamples):
-                x = self.downsamples[s](x)
+                    x = self.downsamples[s - 1](x)
+                for block in stage.blocks:
+                    keep = None
+                    if rng is not None and block.drop_path > 0.0:
+                        keep = torch.rand(2, B, generator=rng, device=x.device) \
+                            < 1.0 - block.drop_path
+                    if self.use_remat and torch.is_grad_enabled():
+                        x = torch.utils.checkpoint.checkpoint(block, x, keep,
+                                                              use_reentrant=False)
+                    else:
+                        x = block(x, keep)
+                y = getattr(self, f"norm{s}")(x) if self.num_out_norms else x
+                Bc, Tc, Hc, Wc, Cc = y.shape
+                outs.append(y.reshape(Bc * Tc, Hc, Wc, Cc))
         return outs
 
 

@@ -232,8 +232,8 @@ def _inside(child, parents):
 def test_spans_of_one_video(engine, monkeypatch, t, chunks):
     """With a profiler recording, one video of two expressions opens the
     engine's and the model's spans, each child inside its parent: per chunk
-    an upload, a backbone and one head for both expressions with its six
-    parts; then one finalize, and one collect holding one wait and one unpack. The
+    an upload, a backbone with its four stages and one head for both
+    expressions with its six parts; then one finalize, and one collect holding one wait and one unpack. The
     ranges are taken where the spans hand them to torch.profiler (a real
     profiler records some 23,000 events a video of the tiny model, 7 s on
     the CPU; tests/test_torch_spans.py and the CLI and trainer tests cover
@@ -256,13 +256,15 @@ def test_spans_of_one_video(engine, monkeypatch, t, chunks):
     want = {"soc.engine.dispatch": 1, "soc.engine.upload": chunks, "soc.backbone": chunks,
             "soc.head": chunks, "soc.engine.finalize": 1, "soc.engine.collect": 1,
             "soc.engine.wait": 1, "soc.engine.unpack": 1,
-            **{f"soc.head.{p}": chunks for p in HEAD_PARTS}}
+            **{f"soc.head.{p}": chunks for p in HEAD_PARTS},
+            **{f"soc.backbone.stage{s}": chunks for s in range(4)}}
     assert {k: len(v) for k, v in by.items()} == want
     parent_of = {"soc.engine.upload": "soc.engine.dispatch", "soc.backbone": "soc.engine.dispatch",
                  "soc.head": "soc.engine.dispatch", "soc.engine.finalize": "soc.engine.dispatch",
                  "soc.engine.wait": "soc.engine.collect",
                  "soc.engine.unpack": "soc.engine.collect",
-                 **{f"soc.head.{p}": "soc.head" for p in HEAD_PARTS}}
+                 **{f"soc.head.{p}": "soc.head" for p in HEAD_PARTS},
+                 **{f"soc.backbone.stage{s}": "soc.backbone" for s in range(4)}}
     for child, parent in parent_of.items():
         for r in by[child]:
             assert len(_inside(r, by[parent])) == 1, (child, parent)

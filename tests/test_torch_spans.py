@@ -1,9 +1,10 @@
 """utils/logging.py:span, the program's named ranges in a torch.profiler
 trace: a shared no-op with no profiler recording, a closed range when the
-code inside raises, and (on the card) a dispatch whose spans and head hold
-no hidden host sync. Imports no JAX (nor tests/torch_port_helpers.py, which
-does), so the card test runs where JAX is absent; its CPU tests do no
-torch-heavy work, so they take no thread share under xdist."""
+code inside raises, the backbone's four stage spans inside soc.backbone, and
+(on the card) a dispatch whose spans and head hold no hidden host sync.
+Imports no JAX (nor tests/torch_port_helpers.py, which does), so the card
+test runs where JAX is absent; its CPU tests do no torch-heavy work, so they
+take no thread share under xdist."""
 import numpy as np
 import pytest
 import torch
@@ -43,6 +44,25 @@ def test_span_closes_its_range_when_the_code_raises():
     assert outer.start <= inner.start <= inner.end <= outer.end
     after = [e.time_range.start for e in events if e.name == "aten::mul_"]
     assert after and outer.end <= min(after)
+
+
+@pytest.mark.parametrize("backbone", ["video-swin-t", "swin-t"])
+def test_stage_spans_partition_the_backbone(backbone):
+    """Under torch.profiler one backbone call of the tiny model (3D and 2D
+    Swin) opens soc.backbone.stage0 to stage3 once each, one after another,
+    inside soc.backbone."""
+    model = init_weights(SOC(**dict(KW, backbone_name=backbone)),
+                         torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.backbone_features(torch.zeros(2, 1, 32, 32, 3))
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.name.startswith("soc.backbone"))
+    assert [n for _, _, n in ranges] == ["soc.backbone"] + [f"soc.backbone.stage{s}"
+                                                           for s in range(4)]
+    (a, b, _), stages = ranges[0], ranges[1:]
+    assert all(a <= s0 <= s1 <= b for s0, s1, _ in stages)
+    assert all(stages[i][1] <= stages[i + 1][0] for i in range(3))
 
 
 @pytest.mark.card
