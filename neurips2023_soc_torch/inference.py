@@ -12,12 +12,15 @@ the final masks (and, on request, the chosen (T, 4) boxes) come back.
 
 Nothing in a dispatch waits for the device: uploads go from pinned buffers
 with non_blocking copies, the results are copied back the same way into
-pinned host buffers, and a CUDA event recorded behind those copies is the one
-thing `_collect_video` waits on. `infer_videos` therefore queues video i+1's
-work before it waits for video i's masks. A staging buffer is handed out
-again only after the event behind its last upload has completed, and the
-caller's frames are copied, never aliased, so a caller may reuse its arrays as
-soon as a dispatch returns.
+pinned host buffers, and a CUDA event is recorded behind those copies. Each
+dispatch ends by handing its video to the engine's collector thread, which
+waits on that event and unpacks the masks into the public contract, first in,
+first out; `_collect_video` only takes the finished result. `infer_videos`
+therefore queues video i+1's work before it takes video i's masks, and the
+host's unpack of video i runs while the card works through video i+1. A
+staging buffer is handed out again only after the event behind its last
+upload has completed, and the caller's frames are copied, never aliased, so a
+caller may reuse its arrays as soon as a dispatch returns.
 
 Time buckets reach 64 frames, so typical Ref-YouTube-VOS videos run in one
 forward and VOC clusters over the whole video; longer videos are chunked.
@@ -36,7 +39,9 @@ from __future__ import annotations
 
 import copy
 import queue
+import threading
 import traceback
+import weakref
 import zipfile
 from collections import deque
 from contextlib import contextmanager, nullcontext
@@ -254,6 +259,10 @@ class InferenceEngine:
         # head calls dispatched, and the expressions they held
         self.head_calls = 0
         self.head_expressions = 0
+        # videos collected, and those whose result the collector had ready
+        self.collects = 0
+        self.collects_ready = 0
+        self._collector: Optional[_Collector] = None
 
     # ---------------- host -> device ----------------
     def _get_pad(self, T: int, H: int, W: int, fh: int, fw: int) -> torch.Tensor:
@@ -364,8 +373,12 @@ class InferenceEngine:
         """Upload, run and finalize every chunk of one video; returns a handle
         for _collect_video. Queues device work only; never waits for it."""
         with span("soc.engine.dispatch"):
-            return self._dispatch(frames, texts, original_size, return_probs, trajectory,
-                                  return_boxes)
+            handle = self._dispatch(frames, texts, original_size, return_probs, trajectory,
+                                    return_boxes)
+            if self._collector is None:
+                self._collector = _Collector(self.device)
+            self._collector.submit(handle)
+            return handle
 
     def _dispatch(self, frames, texts, original_size, return_probs, trajectory,
                   return_boxes) -> dict:
@@ -447,34 +460,85 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
-        return dict(results=results, event=event, oh=oh, ow=ow,
+        return dict(results=results, event=event, oh=oh, ow=ow, pack=stat["pack"],
                     return_probs=return_probs, return_boxes=return_boxes)
 
     def _collect_video(self, handle: dict) -> List:
-        """Wait for one dispatched video's copies and convert to the public
-        contract."""
+        """One dispatched video's results in the public contract, once the
+        collector has them: `soc.engine.wait` covers this thread's wait until
+        the collector has seen the video's event, `soc.engine.unpack` its wait
+        for the unpacked result. An error of the collector's is raised here."""
         with span("soc.engine.collect"):
+            self.collects += 1
+            self.collects_ready += handle["done"].is_set()
             with span("soc.engine.wait"):
-                if handle["event"] is not None:
-                    handle["event"].synchronize()
+                handle["seen"].wait()
             with span("soc.engine.unpack"):
-                return self._unpack(handle)
+                handle["done"].wait()
+                if "error" in handle:
+                    raise handle["error"]
+                return handle["out"]
 
-    def _unpack(self, handle: dict) -> List:
-        oh, ow = handle["oh"], handle["ow"]
-        out = []
-        for masks, boxes in handle["results"]:
-            if handle["return_probs"]:
-                m = _probs_to_host(masks)
-            elif self.pack_masks:
-                m = np.unpackbits(masks.numpy(), axis=-1)[:, :, :ow]
-            else:
-                m = masks.numpy().copy()
-            if handle["return_boxes"]:
-                out.append((m, _cxcywh_to_xyxy_pixels(boxes.numpy(), oh, ow)))
-            else:
-                out.append(m)
-        return out
+
+class _Collector:
+    """An engine's collector: one daemon thread that takes dispatched videos
+    in order, waits on each one's event (the card's copies to pinned host
+    memory) and unpacks its results, while the engine's thread launches the
+    next video's work. Both waits release the interpreter lock. The thread
+    holds no reference to the engine, and ends once its collector is
+    garbage-collected."""
+
+    def __init__(self, device: torch.device):
+        if device.type == "cuda" and device.index is None:  # the card "cuda" means here
+            device = torch.device("cuda", torch.cuda.current_device())
+        jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._put = jobs.put
+        self.thread = threading.Thread(target=_collect_loop, args=(jobs, device),
+                                       name="soc-engine-collector", daemon=True)
+        self.thread.start()
+        weakref.finalize(self, jobs.put, None)
+
+    def submit(self, handle: dict) -> None:
+        handle["seen"], handle["done"] = threading.Event(), threading.Event()
+        self._put(handle)
+
+
+def _collect_loop(jobs: queue.SimpleQueue, device: torch.device) -> None:
+    """The collector thread: each handle gets `out` (or `error`), then `seen`
+    and `done` are set, whatever happens; None ends the loop."""
+    for handle in iter(jobs.get, None):
+        try:
+            if handle["event"] is not None:
+                torch.cuda.set_device(device)  # no context on another card for this thread
+                handle["event"].synchronize()
+            handle["seen"].set()
+            handle["out"] = _unpack(handle)
+        except Exception as e:  # handed to the caller of _collect_video
+            handle["error"] = e
+        finally:
+            handle["seen"].set()
+            handle["done"].set()
+        del handle  # hold no finished video while waiting for the next
+
+
+def _unpack(handle: dict) -> List:
+    """A video's fetched results -> the public contract: masks unpacked and
+    cropped to the original width (or copied), probabilities to float32,
+    boxes to xyxy pixels."""
+    oh, ow = handle["oh"], handle["ow"]
+    out = []
+    for masks, boxes in handle["results"]:
+        if handle["return_probs"]:
+            m = _probs_to_host(masks)
+        elif handle["pack"]:
+            m = np.unpackbits(masks.numpy(), axis=-1)[:, :, :ow]
+        else:
+            m = masks.numpy().copy()
+        if handle["return_boxes"]:
+            out.append((m, _cxcywh_to_xyxy_pixels(boxes.numpy(), oh, ow)))
+        else:
+            out.append(m)
+    return out
 
 
 def _probs_to_host(probs: torch.Tensor) -> np.ndarray:

@@ -1,9 +1,11 @@
 """The port's InferenceEngine (device="cpu") against the JAX package's, on the
 tiny model of tests/test_inference.py with converted parameters, and the
-engine's own contracts: multi-expression reuse, bit-packing, and ownership of
-the caller's frames."""
+engine's own contracts: multi-expression reuse, bit-packing, ownership of
+the caller's frames, and the collector thread that unpacks each video."""
 import contextlib
+import gc
 import itertools
+import sys
 
 import jax
 import numpy as np
@@ -211,6 +213,108 @@ def test_caller_may_reuse_frames_after_dispatch(engine):
     got = [r[0] for r in engine.infer_videos(items(), depth=1)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _parts(result):
+    return result if isinstance(result, tuple) else (result,)
+
+
+@pytest.mark.parametrize("pack_masks, probs_dtype, kw", [
+    (True, "float32", {}),
+    (False, "float32", {}),
+    (True, "float32", dict(return_probs=True)),
+    (True, "uint8", dict(return_probs=True)),
+    (True, "float32", dict(return_boxes=True)),
+], ids=["packed", "unpacked", "probs_f32", "probs_u8", "boxes"])
+def test_pipelined_videos_equal_one_at_a_time(models, pack_masks, probs_dtype, kw):
+    """infer_videos at depth 1 over three videos, the second of two chunks:
+    the collector thread unpacks video i while video i+1 is dispatched, and
+    each video's results equal infer_video_multi's on it, bit for bit and
+    dtype for dtype. Each video is collected once."""
+    engine = InferenceEngine(models[2], time_buckets=(4, 8), pack_masks=pack_masks,
+                             probs_dtype=probs_dtype, device="cpu", **ENGINE)
+    items = [dict(frames=_video(10, t=5), texts=["a thing"], original_size=ORIGINAL, **kw),
+             dict(frames=_video(11, t=12), texts=["a thing", "another thing"], **kw),
+             dict(frames=_video(12), texts=["a dog", "a cat", "a thing"],
+                  original_size=(41, 59), **kw)]
+    got = list(engine.infer_videos(iter(items), depth=1))
+    assert engine.collects == 3 and 0 <= engine.collects_ready <= 3
+    for res, item in zip(got, items):
+        want = engine.infer_video_multi(**item)
+        assert len(res) == len(want) == len(item["texts"])
+        for a, b in zip(res, want):
+            assert len(_parts(a)) == len(_parts(b)) == 1 + bool(kw.get("return_boxes"))
+            for x, y in zip(_parts(a), _parts(b)):
+                assert x.dtype == y.dtype and x.shape == y.shape
+                np.testing.assert_array_equal(x, y)
+
+
+def test_collector_error_reaches_the_caller(models, monkeypatch):
+    """An exception in the collector's unpack of the second of three
+    pipelined videos is raised by infer_videos at that video's result,
+    after the first video's; the engine then serves the next video as
+    before."""
+    engine = InferenceEngine(models[2], time_buckets=(4, 8), device="cpu", **ENGINE)
+    videos = [_video(13), _video(14), _video(15)]
+    want = [engine.infer_video(v, "a thing") for v in videos]
+    unpack, calls = inference._unpack, itertools.count()
+
+    def failing(handle):
+        if next(calls) == 1:
+            raise RuntimeError("unpack failed")
+        return unpack(handle)
+
+    monkeypatch.setattr(inference, "_unpack", failing)
+    results = engine.infer_videos(dict(frames=v, texts=["a thing"]) for v in videos)
+    np.testing.assert_array_equal(next(results)[0], want[0])
+    with pytest.raises(RuntimeError, match="unpack failed"):
+        next(results)
+    np.testing.assert_array_equal(engine.infer_video(videos[2], "a thing"), want[2])
+
+
+def test_collector_thread_is_a_daemon_and_ends_with_its_engine(models):
+    """The collector starts on the first dispatch, as a daemon thread (it
+    never keeps a process alive), and ends once its engine is collected."""
+    engine = InferenceEngine(models[2], time_buckets=(4, 8), device="cpu", **ENGINE)
+    assert engine._collector is None
+    engine.infer_video(_video(16, t=3), "a thing")
+    thread = engine._collector.thread
+    assert thread.daemon and thread.is_alive()
+    del engine
+    gc.collect()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_collector_keeps_each_video_its_own_result(engine):
+    """Stress: 200 hand-made videos of packed masks go through one collector
+    while the interpreter switches threads every microsecond, the caller
+    collecting each three videos behind its hand-off; every collect returns
+    its own video's bits, cropped to its width."""
+    rng = np.random.RandomState(17)
+    collector = inference._Collector(torch.device("cpu"))
+    packed = [rng.randint(0, 256, (2, 3, 4), dtype=np.uint8) for _ in range(200)]
+    handles, got = [], []
+    calls, ready = engine.collects, engine.collects_ready
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for i, p in enumerate(packed):
+            handles.append(dict(results=[(torch.from_numpy(p), None)], event=None, oh=3,
+                                ow=25 + i % 8, pack=True, return_probs=False,
+                                return_boxes=False))
+            collector.submit(handles[-1])
+            if i >= 3:
+                assert handles[i - 3]["done"].wait(timeout=10)
+                got.append(engine._collect_video(handles[i - 3]))
+        for h in handles[-3:]:
+            assert h["done"].wait(timeout=10)
+            got.append(engine._collect_video(h))
+    finally:
+        sys.setswitchinterval(interval)
+    assert engine.collects - calls == 200 and engine.collects_ready - ready == 200
+    for i, (p, (m,)) in enumerate(zip(packed, got)):
+        np.testing.assert_array_equal(m, np.unpackbits(p, axis=-1)[:, :, :25 + i % 8])
 
 
 def test_pixel_buffer_never_aliases_the_frames(engine):

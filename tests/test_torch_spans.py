@@ -1,14 +1,18 @@
 """utils/logging.py:span, the program's named ranges in a torch.profiler
 trace: a shared no-op with no profiler recording, a closed range when the
 code inside raises, the backbone's four stage spans inside soc.backbone, and
-(on the card) a dispatch whose spans and head hold no hidden host sync.
-Imports no JAX (nor tests/torch_port_helpers.py, which does), so the card
+(on the card) a dispatch whose spans and head hold no hidden host sync, and
+the engine's collector thread against a synchronous unpack. Imports no JAX (nor tests/torch_port_helpers.py, which does), so the card
 test runs where JAX is absent; its CPU tests do no torch-heavy work, so they
 take no thread share under xdist."""
+import time
+from collections import deque
+
 import numpy as np
 import pytest
 import torch
 
+from neurips2023_soc_torch import inference
 from neurips2023_soc_torch.inference import InferenceEngine
 from neurips2023_soc_torch.models.common import init_weights
 from neurips2023_soc_torch.models.soc import SOC
@@ -88,3 +92,62 @@ def test_dispatch_holds_no_hidden_host_sync():
     masks = engine._collect_video(handle)
     assert [m.shape for m in masks] == [(7, 40, 56)] * 2
     assert engine.head_calls - calls == 1
+
+
+@pytest.mark.card
+def test_collector_equals_a_synchronous_unpack():
+    """Four videos of 2-5 expressions at 360 x 640 (720 x 1280 originals),
+    dispatched and collected at depth 1 on the card: the collector's results
+    (packed masks with boxes, one video's bfloat16 probabilities) equal, bit
+    for bit, an unpack on this thread of the same handles after their event.
+    While the collector waits on an event behind 0.2 s or more of card work,
+    this thread keeps running Python (the wait releases the interpreter
+    lock). Prints the collect counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card)")
+    model = init_weights(SOC(**KW), torch.Generator().manual_seed(0)).eval()
+    engine = InferenceEngine(model, device="cuda", probs_dtype="bfloat16",
+                             **dict(ENGINE, size_buckets=((360, 640),), time_buckets=(8, 16, 32)))
+    rng = np.random.RandomState(1)
+    items = [dict(frames=rng.randint(0, 256, (t, 360, 640, 3)).astype(np.uint8),
+                  texts=[f"thing number {k}" for k in range(n)], original_size=(720, 1280),
+                  return_boxes=True) for t, n in ((12, 3), (20, 5), (9, 2), (31, 4))]
+    items[2]["return_probs"] = True
+    for _ in engine.infer_videos(iter(items), depth=1):  # fills the caches
+        pass
+    torch.cuda.synchronize()
+    calls, ready = engine.collects, engine.collects_ready
+    handles, got, pending = [], [], deque()
+    for item in items:
+        pending.append(engine._dispatch_video(**item))
+        handles.append(pending[-1])
+        if len(pending) > 1:
+            got.append(engine._collect_video(pending.popleft()))
+    got.append(engine._collect_video(pending.popleft()))
+    print(f"collects {engine.collects - calls}, ready {engine.collects_ready - ready}")
+    assert engine.collects - calls == 4
+    for h, res in zip(handles, got):
+        h["event"].synchronize()
+        want = inference._unpack(h)
+        assert len(res) == len(want) == len(h["results"])
+        for (m, b), (wm, wb) in zip(res, want):
+            assert m.dtype == wm.dtype and m.shape == wm.shape
+            np.testing.assert_array_equal(m, wm)
+            np.testing.assert_array_equal(b, wb)
+
+    def python_ms():
+        t0 = time.perf_counter()
+        sum(i * i for i in range(200_000))
+        return 1e3 * (time.perf_counter() - t0)
+
+    alone = min(python_ms() for _ in range(3))
+    torch.cuda._sleep(int(1e9))  # about half a second of one SM
+    handle = dict(results=[], event=torch.cuda.Event(), oh=720, ow=1280, pack=True,
+                  return_probs=False, return_boxes=False)
+    handle["event"].record()
+    engine._collector.submit(handle)
+    waiting = python_ms()
+    assert not handle["seen"].is_set(), "the card finished before the check"
+    print(f"python ms alone {alone:.2f}, while the collector waits {waiting:.2f}")
+    assert waiting < 3 * alone + 50
+    assert engine._collect_video(handle) == []
