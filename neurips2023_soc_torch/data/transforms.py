@@ -9,7 +9,7 @@ masks uint8 (N, H, W); boxes float32 (N, 4) xyxy absolute pixels.
 from __future__ import annotations
 
 import random
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -173,74 +173,6 @@ def photometric_distort(frames: List[np.ndarray], rng: random.Random):
             img = img[..., perm]
         out.append(np.clip(img, 0.0, 1.0).astype(np.float32))
     return out
-
-
-def crop_sample(frames: List[np.ndarray], masks: Optional[np.ndarray],
-                boxes: Optional[np.ndarray],
-                region: Tuple[int, int, int, int]):
-    """Crop a clip sample to region (i, j, h, w) — the DETR-style `crop`
-    (reference transforms.py:128-165): boxes translate then clamp to the
-    crop window; returns (frames, masks, boxes, keep) where keep (T, N) bool
-    marks instances whose clamped box still has positive area (the reference
-    *removes* such elements per image; our fixed-slot layout instead feeds
-    `keep` into the visibility/validity flags).
-
-    Unused by every shipped reference config (their pipelines resize only)
-    but part of the reference's transform toolbox."""
-    i, j, h, w = region
-    frames = [f[i:i + h, j:j + w].copy() for f in frames]
-    if masks is not None and masks.size:
-        masks = masks[..., i:i + h, j:j + w].copy()
-    keep = None
-    if boxes is not None and boxes.size:
-        b = boxes.astype(np.float32) - np.array([j, i, j, i], np.float32)
-        b2 = b.reshape(b.shape[:-1] + (2, 2))
-        b2 = np.minimum(b2, np.array([w, h], np.float32))
-        b2 = np.clip(b2, 0.0, None)
-        boxes = b2.reshape(b.shape)
-        keep = np.all(b2[..., 1, :] > b2[..., 0, :], axis=-1)
-    elif masks is not None and masks.size:
-        keep = masks.reshape(masks.shape[:-2] + (-1,)).any(-1)
-    return frames, masks, boxes, keep
-
-
-def pad_sample(frames: List[np.ndarray], masks: Optional[np.ndarray],
-               boxes: Optional[np.ndarray], pad_x: int, pad_y: int):
-    """Bottom-right zero padding (reference transforms.py:242-253 `pad`):
-    boxes are untouched, masks pad with zeros."""
-    frames = [
-        np.pad(f, ((0, pad_y), (0, pad_x), (0, 0))) for f in frames
-    ]
-    if masks is not None and masks.size:
-        masks = np.pad(masks, ((0, 0),) * (masks.ndim - 2)
-                       + ((0, pad_y), (0, pad_x)))
-    return frames, masks, boxes
-
-
-def center_crop_region(img_h: int, img_w: int, crop_h: int,
-                       crop_w: int) -> Tuple[int, int, int, int]:
-    """(reference transforms.py:277-286 CenterCrop)."""
-    top = int(round((img_h - crop_h) / 2.0))
-    left = int(round((img_w - crop_w) / 2.0))
-    return top, left, crop_h, crop_w
-
-
-def random_size_crop_region(rng: random.Random, img_h: int, img_w: int,
-                            min_size: int, max_size: int):
-    """(reference transforms.py:265-274 RandomSizeCrop +
-    torchvision RandomCrop.get_params): pick a random (h, w) in
-    [min_size, min(img, max_size)] and a uniform placement."""
-    w = rng.randint(min_size, min(img_w, max_size))
-    h = rng.randint(min_size, min(img_h, max_size))
-    i = rng.randint(0, img_h - h) if img_h > h else 0
-    j = rng.randint(0, img_w - w) if img_w > w else 0
-    return i, j, h, w
-
-
-def random_select(rng: random.Random, transform1, transform2, p: float = 0.5):
-    """(reference transforms.py:321-333 RandomSelect): pick transform1 with
-    probability p, else transform2. Returns the chosen callable."""
-    return transform1 if rng.random() < p else transform2
 
 
 class VideoTransforms:

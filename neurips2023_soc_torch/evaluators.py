@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import json
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
@@ -32,7 +31,7 @@ import torch
 from .evaluation.coco_eval import evaluate_coco_map, precision_at_k_and_iou
 from .evaluation.rle import decode as rle_decode
 from .evaluation.rle import encode as rle_encode
-from .inference import _to_host
+from .inference import _after_event, _host_worker, _to_host
 from .models.postprocessing import (a2d_device_step, a2d_host_postprocess, a2d_postprocess,
                                     coco_topk_device_step)
 from .training.train_step import device_batch
@@ -113,24 +112,18 @@ def _run_pipelined(model: torch.nn.Module, batches: Iterable[Dict], device_fn, h
     tensors are device_fn(outputs, batch)'s device tensors copied out. The
     forward and device_fn run here, on the current stream of the model's
     device; the copies are queued into pinned memory behind an event on that
-    stream, and the worker thread waits for the event before host_fn reads
-    them."""
+    stream, and the worker thread (`_host_worker`, bound to the model's card)
+    waits for the event before host_fn reads them (`_after_event`)."""
     device = next(model.parameters()).device
-
-    def host_step(event, host, batch):
-        if event is not None:
-            event.synchronize()
-        return host_fn(*host, batch)
-
     results, pending = [], deque()
-    with evaluating(model), ThreadPoolExecutor(max_workers=1) as ex:
+    with evaluating(model), _host_worker(device, "soc-eval-host") as ex:
         for batch in prefetch(batches):
             host = tuple(_to_host(t) for t in device_fn(forward_batch(model, batch), batch))
             event = None
             if device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(device))
-            pending.append(ex.submit(host_step, event, host, batch))
+            pending.append(ex.submit(_after_event, event, None, host_fn, *host, batch))
             if len(pending) > MAX_IN_FLIGHT:
                 results.append(pending.popleft().result())
         results.extend(f.result() for f in pending)

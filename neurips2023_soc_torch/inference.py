@@ -10,17 +10,19 @@ chosen query, upsample to the bucket, crop, resize to the original size,
 sigmoid, threshold, bit-pack) all run on the device, per expression. Only
 the final masks (and, on request, the chosen (T, 4) boxes) come back.
 
-Nothing in a dispatch waits for the device: uploads go from pinned buffers
-with non_blocking copies, the results are copied back the same way into
-pinned host buffers, and a CUDA event is recorded behind those copies. Each
-dispatch ends by handing its video to the engine's collector thread, which
+Nothing in a dispatch waits for the device: frames and tokens are copied
+into pinned host blocks and uploaded with non_blocking copies, the results
+are copied back the same way, and a CUDA event is recorded behind those
+copies. Every pinned block comes from PyTorch's caching host allocator, which
+hands a block out again only after the copies recorded on it have completed.
+Each dispatch ends by handing its video to the engine's worker thread (one
+`ThreadPoolExecutor` thread, the evaluators' pattern: `_after_event`), which
 waits on that event and unpacks the masks into the public contract, first in,
 first out; `_collect_video` only takes the finished result. `infer_videos`
 therefore queues video i+1's work before it takes video i's masks, and the
-host's unpack of video i runs while the card works through video i+1. A
-staging buffer is handed out again only after the event behind its last
-upload has completed, and the caller's frames are copied, never aliased, so a
-caller may reuse its arrays as soon as a dispatch returns.
+host's unpack of video i runs while the card works through video i+1. The
+caller's frames are copied, never aliased, so a caller may reuse its arrays
+as soon as a dispatch returns.
 
 Time buckets reach 64 frames, so typical Ref-YouTube-VOS videos run in one
 forward and VOC clusters over the whole video; longer videos are chunked.
@@ -41,9 +43,9 @@ import copy
 import queue
 import threading
 import traceback
-import weakref
 import zipfile
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -177,42 +179,6 @@ def _select_in_graph(score_sums: List[torch.Tensor], trajectory: str) -> List[to
     return [torch.argmax(s) for s in score_sums]
 
 
-class _Staging:
-    """Engine-owned host buffers for uploads. On CUDA they are pinned, and a
-    buffer is reused only after the event recorded behind its last upload has
-    completed; on the CPU every upload gets a fresh buffer."""
-
-    MAX_PER_SHAPE = 4
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._slots: List[list] = []  # [buffer, event or None]
-
-    def upload(self, shape, dtype: torch.dtype, fill) -> torch.Tensor:
-        """fill(np_view) writes the content into the staging buffer; returns
-        the tensor on the engine's device."""
-        if self.device.type != "cuda":
-            buf = torch.empty(shape, dtype=dtype)
-            fill(buf.numpy())
-            return buf
-        same = [s for s in self._slots
-                if s[0].shape == torch.Size(shape) and s[0].dtype == dtype]
-        slot = next((s for s in same if s[1] is None or s[1].query()), None)
-        if slot is None and len(same) >= self.MAX_PER_SHAPE:
-            slot = same[0]
-            with span("soc.engine.staging_wait"):
-                slot[1].synchronize()
-        if slot is None:
-            slot = [torch.empty(shape, dtype=dtype, pin_memory=True), None]
-            self._slots.append(slot)
-        fill(slot[0].numpy())
-        out = slot[0].to(self.device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        slot[1] = event
-        return out
-
-
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """Queue a device->host copy into pinned memory (no wait)."""
     if t.device.type != "cuda":
@@ -220,6 +186,32 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def _after_event(event: Optional[torch.cuda.Event], seen: Optional[threading.Event], fn, *args):
+    """The host half of one dispatch, on a worker thread: wait on `event`
+    (the card's copies to pinned host memory; None on the CPU), which
+    releases the interpreter lock, set `seen` whatever happens, then return
+    fn(*args)."""
+    try:
+        if event is not None:
+            event.synchronize()
+    finally:
+        if seen is not None:
+            seen.set()
+    return fn(*args)
+
+
+def _host_worker(device: torch.device, name: str) -> ThreadPoolExecutor:
+    """One thread that runs `_after_event` jobs in order, bound to `device`'s
+    card on CUDA (it makes no context on another card). It starts on the
+    first job and ends once the executor is garbage-collected or shut down."""
+    if device.type != "cuda":
+        return ThreadPoolExecutor(1, thread_name_prefix=name)
+    if device.index is None:  # the card "cuda" means here
+        device = torch.device("cuda", torch.cuda.current_device())
+    return ThreadPoolExecutor(1, thread_name_prefix=name,
+                              initializer=torch.cuda.set_device, initargs=(device,))
 
 
 class InferenceEngine:
@@ -252,17 +244,16 @@ class InferenceEngine:
         self.time_buckets = tuple(time_buckets or DEFAULT_TIME_BUCKETS)
         self.size_buckets = tuple(size_buckets)
         self.pack_masks = pack_masks
-        self._staging = _Staging(self.device)
         self._pad_cache: Dict[tuple, torch.Tensor] = {}
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
         # head calls dispatched, and the expressions they held
         self.head_calls = 0
         self.head_expressions = 0
-        # videos collected, and those whose result the collector had ready
+        # videos collected, and those whose result the worker had ready
         self.collects = 0
         self.collects_ready = 0
-        self._collector: Optional[_Collector] = None
+        self._worker: Optional[ThreadPoolExecutor] = None
 
     # ---------------- host -> device ----------------
     def _get_pad(self, T: int, H: int, W: int, fh: int, fw: int) -> torch.Tensor:
@@ -287,12 +278,18 @@ class InferenceEngine:
                     self._plane(uc, T, H // 2, W // 2, (fh + 1) // 2, (fw + 1) // 2),
                     self._plane(vc, T, H // 2, W // 2, (fh + 1) // 2, (fw + 1) // 2))
         dtype = torch.uint8 if clip.dtype == np.uint8 else torch.float32
-        return self._staging.upload((T, 1, H, W, 3), dtype,
-                                    self._filler(clip, T, H, W, fh, fw))
+        return self._upload((T, 1, H, W, 3), dtype, self._filler(clip, T, H, W, fh, fw))
 
     def _plane(self, c: np.ndarray, T: int, h: int, w: int, ch: int, cw: int):
-        return self._staging.upload((T, 1, h, w), torch.uint8,
-                                    self._filler(c, T, h, w, ch, cw))
+        return self._upload((T, 1, h, w), torch.uint8, self._filler(c, T, h, w, ch, cw))
+
+    def _upload(self, shape, dtype: torch.dtype, fill) -> torch.Tensor:
+        """fill(np_view) writes a new host tensor, which goes to the engine's
+        device. On CUDA it is a pinned block of PyTorch's caching host
+        allocator, reused only after its copy has completed."""
+        buf = torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+        fill(buf.numpy())
+        return buf.to(self.device, non_blocking=True)
 
     @staticmethod
     def _filler(c: np.ndarray, T: int, h: int, w: int, ch: int, cw: int):
@@ -310,14 +307,12 @@ class InferenceEngine:
 
     def _tokens(self, texts: Sequence[str]):
         """Token ids and mask (n, S) of every text, in one tokenizer call, on
-        the device. On CUDA they ride pinned blocks of PyTorch's host
-        allocator, which reuses a block only after its copy has completed."""
+        the device (through `_upload`)."""
         out = []
         for a in self.tokenizer(list(texts)):
-            t = torch.from_numpy(np.array(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
+            a = np.array(a)
+            out.append(self._upload(a.shape, torch.from_numpy(a).dtype,
+                                    lambda buf, a=a: np.copyto(buf, a)))
         return out
 
     # ---------------- per-video inference ----------------
@@ -375,10 +370,19 @@ class InferenceEngine:
         with span("soc.engine.dispatch"):
             handle = self._dispatch(frames, texts, original_size, return_probs, trajectory,
                                     return_boxes)
-            if self._collector is None:
-                self._collector = _Collector(self.device)
-            self._collector.submit(handle)
+            self._submit(handle)
             return handle
+
+    def _submit(self, handle: dict) -> None:
+        """Queue `_unpack(handle)` on the engine's worker behind the handle's
+        event; the handle gets `seen` (the event has completed) and `future`."""
+        if self._worker is None:
+            self._worker = _host_worker(self.device, "soc-engine-collector")
+        seen = handle["seen"] = threading.Event()
+        handle["future"] = self._worker.submit(_after_event, handle["event"], seen,
+                                               _unpack, handle)
+        # a worker whose initializer failed never runs the job: wake the wait all the same
+        handle["future"].add_done_callback(lambda _: seen.set())
 
     def _dispatch(self, frames, texts, original_size, return_probs, trajectory,
                   return_boxes) -> dict:
@@ -465,60 +469,16 @@ class InferenceEngine:
 
     def _collect_video(self, handle: dict) -> List:
         """One dispatched video's results in the public contract, once the
-        collector has them: `soc.engine.wait` covers this thread's wait until
-        the collector has seen the video's event, `soc.engine.unpack` its wait
-        for the unpacked result. An error of the collector's is raised here."""
+        worker has them: `soc.engine.wait` covers this thread's wait until
+        the worker has seen the video's event, `soc.engine.unpack` its wait
+        for the unpacked result. An error of the worker's is raised here."""
         with span("soc.engine.collect"):
             self.collects += 1
-            self.collects_ready += handle["done"].is_set()
+            self.collects_ready += handle["future"].done()
             with span("soc.engine.wait"):
                 handle["seen"].wait()
             with span("soc.engine.unpack"):
-                handle["done"].wait()
-                if "error" in handle:
-                    raise handle["error"]
-                return handle["out"]
-
-
-class _Collector:
-    """An engine's collector: one daemon thread that takes dispatched videos
-    in order, waits on each one's event (the card's copies to pinned host
-    memory) and unpacks its results, while the engine's thread launches the
-    next video's work. Both waits release the interpreter lock. The thread
-    holds no reference to the engine, and ends once its collector is
-    garbage-collected."""
-
-    def __init__(self, device: torch.device):
-        if device.type == "cuda" and device.index is None:  # the card "cuda" means here
-            device = torch.device("cuda", torch.cuda.current_device())
-        jobs: queue.SimpleQueue = queue.SimpleQueue()
-        self._put = jobs.put
-        self.thread = threading.Thread(target=_collect_loop, args=(jobs, device),
-                                       name="soc-engine-collector", daemon=True)
-        self.thread.start()
-        weakref.finalize(self, jobs.put, None)
-
-    def submit(self, handle: dict) -> None:
-        handle["seen"], handle["done"] = threading.Event(), threading.Event()
-        self._put(handle)
-
-
-def _collect_loop(jobs: queue.SimpleQueue, device: torch.device) -> None:
-    """The collector thread: each handle gets `out` (or `error`), then `seen`
-    and `done` are set, whatever happens; None ends the loop."""
-    for handle in iter(jobs.get, None):
-        try:
-            if handle["event"] is not None:
-                torch.cuda.set_device(device)  # no context on another card for this thread
-                handle["event"].synchronize()
-            handle["seen"].set()
-            handle["out"] = _unpack(handle)
-        except Exception as e:  # handed to the caller of _collect_video
-            handle["error"] = e
-        finally:
-            handle["seen"].set()
-            handle["done"].set()
-        del handle  # hold no finished video while waiting for the next
+                return handle["future"].result()
 
 
 def _unpack(handle: dict) -> List:

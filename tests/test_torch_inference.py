@@ -1,11 +1,12 @@
 """The port's InferenceEngine (device="cpu") against the JAX package's, on the
 tiny model of tests/test_inference.py with converted parameters, and the
 engine's own contracts: multi-expression reuse, bit-packing, ownership of
-the caller's frames, and the collector thread that unpacks each video."""
+the caller's frames, and the worker thread that unpacks each video."""
 import contextlib
 import gc
 import itertools
 import sys
+import threading
 
 import jax
 import numpy as np
@@ -272,14 +273,20 @@ def test_collector_error_reaches_the_caller(models, monkeypatch):
     np.testing.assert_array_equal(engine.infer_video(videos[2], "a thing"), want[2])
 
 
+def _collector_threads():
+    return {t for t in threading.enumerate() if t.name.startswith("soc-engine-collector")}
+
+
 def test_collector_thread_is_a_daemon_and_ends_with_its_engine(models):
-    """The collector starts on the first dispatch, as a daemon thread (it
-    never keeps a process alive), and ends once its engine is collected."""
+    """The engine's worker thread (no longer a daemon: at interpreter exit
+    Python finishes its queued collects) starts on the first dispatch, and
+    ends once its engine is collected."""
+    before = _collector_threads()
     engine = InferenceEngine(models[2], time_buckets=(4, 8), device="cpu", **ENGINE)
-    assert engine._collector is None
+    assert _collector_threads() == before
     engine.infer_video(_video(16, t=3), "a thing")
-    thread = engine._collector.thread
-    assert thread.daemon and thread.is_alive()
+    (thread,) = _collector_threads() - before
+    assert thread.is_alive()
     del engine
     gc.collect()
     thread.join(timeout=10)
@@ -287,12 +294,11 @@ def test_collector_thread_is_a_daemon_and_ends_with_its_engine(models):
 
 
 def test_collector_keeps_each_video_its_own_result(engine):
-    """Stress: 200 hand-made videos of packed masks go through one collector
-    while the interpreter switches threads every microsecond, the caller
-    collecting each three videos behind its hand-off; every collect returns
-    its own video's bits, cropped to its width."""
+    """Stress: 200 hand-made videos of packed masks go through one engine's
+    worker while the interpreter switches threads every microsecond, the
+    caller collecting each three videos behind its hand-off; every collect
+    returns its own video's bits, cropped to its width."""
     rng = np.random.RandomState(17)
-    collector = inference._Collector(torch.device("cpu"))
     packed = [rng.randint(0, 256, (2, 3, 4), dtype=np.uint8) for _ in range(200)]
     handles, got = [], []
     calls, ready = engine.collects, engine.collects_ready
@@ -303,12 +309,12 @@ def test_collector_keeps_each_video_its_own_result(engine):
             handles.append(dict(results=[(torch.from_numpy(p), None)], event=None, oh=3,
                                 ow=25 + i % 8, pack=True, return_probs=False,
                                 return_boxes=False))
-            collector.submit(handles[-1])
+            engine._submit(handles[-1])
             if i >= 3:
-                assert handles[i - 3]["done"].wait(timeout=10)
+                assert handles[i - 3]["future"].exception(timeout=10) is None
                 got.append(engine._collect_video(handles[i - 3]))
         for h in handles[-3:]:
-            assert h["done"].wait(timeout=10)
+            assert h["future"].exception(timeout=10) is None
             got.append(engine._collect_video(h))
     finally:
         sys.setswitchinterval(interval)

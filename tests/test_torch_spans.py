@@ -2,7 +2,7 @@
 trace: a shared no-op with no profiler recording, a closed range when the
 code inside raises, the backbone's four stage spans inside soc.backbone, and
 (on the card) a dispatch whose spans and head hold no hidden host sync, and
-the engine's collector thread against a synchronous unpack. Imports no JAX (nor tests/torch_port_helpers.py, which does), so the card
+the engine's worker thread against a synchronous unpack. Imports no JAX (nor tests/torch_port_helpers.py, which does), so the card
 test runs where JAX is absent; its CPU tests do no torch-heavy work, so they
 take no thread share under xdist."""
 import time
@@ -145,7 +145,7 @@ def test_collector_equals_a_synchronous_unpack():
     handle = dict(results=[], event=torch.cuda.Event(), oh=720, ow=1280, pack=True,
                   return_probs=False, return_boxes=False)
     handle["event"].record()
-    engine._collector.submit(handle)
+    engine._submit(handle)
     waiting = python_ms()
     assert not handle["seen"].is_set(), "the card finished before the check"
     print(f"python ms alone {alone:.2f}, while the collector waits {waiting:.2f}")
