@@ -53,6 +53,12 @@ prints no result):
                fail its tolerance when the kernel is given a zeroed bias. K3
                and SDPA are timed at the eight stage shapes of each backbone
                and summed over one clip's 24 blocks.
+               The LayerNorm kernel at LN_SHAPES (the largest norm of each
+               kind on the main path), held against layer_norm_ref (at most
+               one bf16 ulp apart plus float32 rounding of the row's
+               statistics, at most 0.1 % of the elements differing)
+               and timed beside its bound, the plain version and F.layer_norm
+               (`--layer-norm-times` runs this alone).
   4. e2e     — the inference path: Video-Swin-B SOC (d_model 256, 20 queries,
                FFN 2048, 3+3 deformable layers, VOC 3+3, roberta-base, bf16)
                from a seeded random init, InferenceEngine.infer_videos over 3
@@ -234,6 +240,7 @@ from neurips2023_soc_torch.models.deformable_transformer import _offset_grid_bia
 from neurips2023_soc_torch.models.soc import SOC
 from neurips2023_soc_torch.models.text_encoder import build_tokenizer
 from neurips2023_soc_torch.ops import _build
+from neurips2023_soc_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from neurips2023_soc_torch.ops.ms_deform_attn import (ms_deform_attn, ms_deform_attn_torch,
                                                       ms_deform_attn_torch_bwd)
 from neurips2023_soc_torch.ops.window_attention import (_kernel_layout, mask_from_ids,
@@ -248,6 +255,7 @@ from neurips2023_soc_torch.training.train_step import TARGET_KEYS, device_batch
 ROOT = Path(__file__).resolve().parent
 # the wrapper module (the package exports the function of the same name)
 msda_mod = importlib.import_module("neurips2023_soc_torch.ops.ms_deform_attn")
+ln_mod = importlib.import_module("neurips2023_soc_torch.ops.layer_norm")
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +270,10 @@ B_CLIP, M, D, P = 16, 8, 32, 4
 NUM_VIDEOS, T_CLIP, HEIGHT, WIDTH = 3, 16, 360, 640
 MSDA_PER_CLIP = 6  # 3 encoder + 3 decoder layers
 K3_PER_CLIP = 24  # one per Video-Swin-B block (2 + 2 + 18 + 2), 12 of them shifted
+# bf16 LayerNorm calls of a Video-Swin-B clip forward, each a kernel launch (52 in the
+# backbone, 31 at 256 in the head, 25 in RoBERTa), and the float32 ones (txt_proj's two)
+LN_PER_CLIP, LN_PLAIN_PER_CLIP = 108, 2
+ROBERTA_NORMS = 25  # the frozen text encoder's, run without gradients in training too
 T_TRAIN, TRAIN_STEPS = 8, 4  # training clip length (window_size), steps
 
 
@@ -270,6 +282,7 @@ def reset_counters() -> None:
         setattr(ms_deform_attn, name, 0)
     window_attention.launches = window_attention.plain_calls = 0
     window_attention_torch.calls = 0
+    layer_norm.launches = layer_norm.plain_calls = 0
 
 
 def log(msg: str) -> None:
@@ -653,6 +666,87 @@ def msda_times() -> None:
     log(json.dumps({"msda_times": times, "tree": str(ROOT)}))
 
 
+# ---------------------------------------------------------------- LayerNorm
+# The main path's largest norm of each kind at 360 x 640 and the 64-frame bucket: (tag, C, rows)
+LN_SHAPES = (("swin-l stage 0", 192, 64 * 90 * 160), ("swin-l stage 2", 768, 64 * 23 * 40),
+             ("swin-l merge 3", 3072, 64 * 12 * 20), ("swin-b stage 0", 128, 32 * 90 * 160),
+             ("swin-b stage 2", 512, 32 * 23 * 40), ("swin-b merge 3", 2048, 32 * 12 * 20),
+             ("encoder", 256, 256 * 4820), ("roberta", 768, 8 * 32))
+
+
+def layer_norm_times() -> list:
+    """The LayerNorm kernel at LN_SHAPES on whichever tree this script sits in:
+    held against layer_norm_ref (ops.layer_norm.compare_to_ref: at most one
+    bf16 ulp plus float32 rounding of the row's statistics, at most 0.1 % of
+    the elements differing), timed as
+    20 back-to-back calls per event pair beside its bound (bytes at
+    HBM_BYTES_PER_S), the plain version and one F.layer_norm call on the
+    bfloat16 tensor (the library yardstick, which the port never calls); then
+    the host's time to issue one call of each at the decoder's small shape.
+    Returns the rows, one a shape."""
+    _build.build_all(["layer_norm_fwd"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows_out, failed = [], []
+    for tag, C, rows in LN_SHAPES:
+        x = (0.3 + 2.0 * torch.randn(rows, C, generator=g, device="cuda")).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(C, generator=g, device="cuda")
+        b = 0.02 * torch.randn(C, generator=g, device="cuda")
+        got, want = ln_mod._launch(x, w, b, 1e-6), layer_norm_ref(x, w, b, 1e-6, torch.bfloat16)
+        share, worst, _ = ln_mod.compare_to_ref(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        if share > ln_mod.MAX_DIFFER_SHARE or worst > 1.0:
+            failed.append(f"[layer_norm {tag}] {share:.2e} of the elements differ, "
+                          f"{worst:.3f} of the bound")
+        try:
+            F.layer_norm(x, (C,), w, b, 1e-6)
+            lw, lb, lib_weights = w, b, "float32"
+        except RuntimeError:
+            lw, lb, lib_weights = w.to(torch.bfloat16), b.to(torch.bfloat16), "bfloat16"
+        row = dict(tag=tag, C=C, rows=rows, differ=share, worst_of_bound=worst, max_abs_err=err,
+                   ms=time_ms(lambda: ln_mod._launch(x, w, b, 1e-6), reps=20),
+                   bound_ms=(rows * C * 4 + 2 * C * 4) / HBM_BYTES_PER_S * 1e3,
+                   plain_ms=time_ms(lambda: layer_norm_ref(x, w, b, 1e-6, torch.bfloat16),
+                                    reps=20),
+                   library_ms=time_ms(lambda: F.layer_norm(x, (C,), lw, lb, 1e-6), reps=20),
+                   library_weights=lib_weights)
+        rows_out.append(row)
+        log(f"[layer_norm] {json.dumps(row)}")
+        del x, got, want
+    x = torch.randn(20 * 16, 256, generator=g, device="cuda").to(torch.bfloat16)
+    w, b = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    host = {}
+    for name, fn in (("kernel", lambda: layer_norm(x, w, b, 1e-6, torch.bfloat16)),
+                     ("plain", lambda: layer_norm_ref(x, w, b, 1e-6, torch.bfloat16))):
+        with torch.no_grad():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            host[f"{name}_host_us"] = (time.perf_counter() - t0) / 2000 * 1e6
+            torch.cuda.synchronize()
+    log(json.dumps({"layer_norm_times": rows_out, "host": host, "tree": str(ROOT)}))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return rows_out
+
+
+def layer_norm_entry(rows: list, launches: int) -> dict:
+    """The LayerNorm kernel's entry of the `kernels` line: the times of
+    phase e2e's largest norm (Video-Swin-B stage 0) from layer_norm_times'
+    `rows`, its largest error over every shape, and `launches`."""
+    main = next(r for r in rows if r["tag"] == "swin-b stage 0")
+    return dict(name="layer_norm_fwd", route="cuda",
+                note=f"{main['rows']} x {main['C']} bf16; f32 statistics in registers, "
+                     "bf16 read and written once",
+                source="neurips2023_soc_torch/csrc/layer_norm_fwd.cu",
+                replaces="none (the JAX package leaves LayerNorm to XLA)", launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=main["library_ms"])
+
+
 # ---------------------------------------------------------------- K3
 def window_geometry(T: int, H: int, W: int, window, shifted: bool):
     """(B_, N, ids) of one Swin block on a (T, H, W) token grid: padded to
@@ -924,14 +1018,19 @@ def main_path() -> dict:
             or window_attention_torch.calls != K3_PER_CLIP * NUM_VIDEOS:
         raise RuntimeError("swin_attn_impl xla: expected only window_attention_torch, "
                            f"{K3_PER_CLIP} calls per clip")
+    ln = (layer_norm.launches, layer_norm.plain_calls)
+    if ln != (LN_PER_CLIP * NUM_VIDEOS, LN_PLAIN_PER_CLIP * NUM_VIDEOS):
+        raise RuntimeError(f"LayerNorm launches / plain calls {ln} over {NUM_VIDEOS} clips, "
+                           f"expected {LN_PER_CLIP} / {LN_PLAIN_PER_CLIP} per clip")
     check_masks(results)
     engine_fps = NUM_VIDEOS * T_CLIP / wall
     log(f"[e2e] infer_videos: {NUM_VIDEOS} videos x {T_CLIP} frames in {wall:.3f} s "
         f"= {engine_fps:.2f} frames/s; MSDA launches {launches}, plain calls {plain}; "
-        f"mask foreground share {np.mean([m.mean() for (m,) in results]):.4f}")
+        f"LayerNorm launches / plain calls {ln[0]} / {ln[1]}; mask foreground share "
+        f"{np.mean([m.mean() for (m,) in results]):.4f}")
 
     timings = clip_timings(model, videos[0], texts[0], engine.tokenizer, "e2e")
-    return dict(launches=launches, engine_fps=engine_fps,
+    return dict(launches=launches, ln_launches=ln[0], engine_fps=engine_fps,
                 masks=[m for (m,) in results], **timings)
 
 
@@ -1001,12 +1100,14 @@ def k3_path(e2e: dict) -> dict:
     def counts():
         return dict(k3=window_attention.launches, k3_plain=window_attention.plain_calls,
                     xla_attn=window_attention_torch.calls, k1=ms_deform_attn.launches,
-                    k1_plain=ms_deform_attn.plain_calls)
+                    k1_plain=ms_deform_attn.plain_calls, ln=layer_norm.launches,
+                    ln_plain=layer_norm.plain_calls)
 
     def expect(clips: int, tag: str) -> dict:
         got = counts()
         want = dict(k3=K3_PER_CLIP * clips, k3_plain=0, xla_attn=0,
-                    k1=MSDA_PER_CLIP * clips, k1_plain=0)
+                    k1=MSDA_PER_CLIP * clips, k1_plain=0, ln=LN_PER_CLIP * clips,
+                    ln_plain=LN_PLAIN_PER_CLIP * clips)
         if got != want:
             raise RuntimeError(f"{tag}: kernel counts {got}, expected {want}")
         return got
@@ -1285,12 +1386,20 @@ def train_path(smi: str, out_dir: str) -> dict:
     wall = time.perf_counter() - t0
     counts = {k: getattr(ms_deform_attn, k) for k in
               ("launches", "bwd_launches", "plain_calls", "plain_bwd_calls")}
+    ln = (layer_norm.launches, layer_norm.plain_calls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if counts != {"launches": MSDA_PER_CLIP * TRAIN_STEPS,
                   "bwd_launches": MSDA_PER_CLIP * TRAIN_STEPS,
                   "plain_calls": 0, "plain_bwd_calls": 0}:
         raise RuntimeError(f"MSDA counts over {TRAIN_STEPS} steps: {counts}; expected "
                            f"{MSDA_PER_CLIP} forward and backward launches per step")
+    # bf16 training: the frozen RoBERTa runs under no_grad and takes the LayerNorm kernel,
+    # every norm that needs a gradient (and txt_proj's float32 ones) the plain path
+    want_ln = (ROBERTA_NORMS * TRAIN_STEPS,
+               (LN_PER_CLIP - ROBERTA_NORMS + LN_PLAIN_PER_CLIP) * TRAIN_STEPS)
+    if ln != want_ln:
+        raise RuntimeError(f"LayerNorm launches / plain calls over {TRAIN_STEPS} steps {ln}, "
+                           f"expected {want_ln}")
     hist = trainer.history
     check_history("train", hist, TRAIN_STEPS)
     after = model.state_dict()
@@ -1309,8 +1418,8 @@ def train_path(smi: str, out_dir: str) -> dict:
     log(f"[train] {TRAIN_STEPS} steps of 1 x {T_TRAIN} x {HEIGHT} x {WIDTH} in {wall:.2f} s; "
         f"losses {[round(h['loss'], 4) for h in hist]}; grad_norm "
         f"{[round(h['grad_norm'], 4) for h in hist]}")
-    log(f"[train] MSDA counts {counts}; parameters moved {moved}; checkpoint epoch {epoch} "
-        f"read back equal")
+    log(f"[train] MSDA counts {counts}; LayerNorm launches / plain calls {ln[0]} / {ln[1]}; "
+        f"parameters moved {moved}; checkpoint epoch {epoch} read back equal")
 
     # one more step split by CUDA events, then one step's 6 K1 and 6 K2 calls checked
     batch = device_batch(next(iter(batches(1))), torch.device("cuda"))
@@ -1387,6 +1496,15 @@ def golden_inference(tag: str, meta: dict, g1: dict, model, attn_impl: str, tol:
                 xla_attn=2 * K3_PER_CLIP - k3)
     if got != want:
         raise RuntimeError(f"[golden {tag}] kernel counts {got}, expected {want} (two clips)")
+    # the LayerNorm kernel runs every norm of a bfloat16 module and none of a float32 one
+    ln = dict(ln=layer_norm.launches, ln_plain=layer_norm.plain_calls)
+    bf16 = model.dtype == torch.bfloat16
+    want_ln = dict(ln=2 * LN_PER_CLIP if bf16 else 0,
+                   ln_plain=2 * (LN_PLAIN_PER_CLIP if bf16 else LN_PER_CLIP + LN_PLAIN_PER_CLIP))
+    if ln != want_ln:
+        raise RuntimeError(f"[golden {tag}] LayerNorm counts {ln} in a {model.dtype} model, "
+                           f"expected {want_ln} (two clips)")
+    got.update(ln)
     rep = golden.compare_soc(soc, g1["soc"], tol, T, raise_on_fail=False)
     eng = golden.compare_engine(masks, soc, g1["engine"], g1["soc"], T, prob_tol,
                                 raise_on_fail=False)
@@ -2676,6 +2794,9 @@ def main(argv) -> int:
     if argv == ["--msda-times"]:
         msda_times()
         return 0
+    if argv == ["--layer-norm-times"]:
+        layer_norm_times()
+        return 0
     if argv == ["--train-times"]:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="soc_train_") as out_dir:
@@ -2694,8 +2815,8 @@ def main(argv) -> int:
         (golden_path if argv == ["--golden"] else pool_path)(smi)
         return 0
     if argv:
-        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times, --train-times, "
-              "--multi-rank, --golden or --pool)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv} (none, --msda-times, --layer-norm-times, "
+              "--train-times, --multi-rank, --golden or --pool)", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -2705,7 +2826,9 @@ def main(argv) -> int:
     k1 = check_msda()
     k2 = check_msda_bwd()
     k3 = check_window_attention()
+    ln_rows = layer_norm_times()
     e2e = main_path()
+    ln_entry = layer_norm_entry(ln_rows, e2e["ln_launches"])
     k1["launches"] = e2e["launches"]
     log(f"[e2e] {smi}: device {e2e['device_fps']:.2f} frames/s, engine "
         f"{e2e['engine_fps']:.2f} frames/s, backbone {e2e['backbone_ms']:.2f} ms "
@@ -2748,7 +2871,8 @@ def main(argv) -> int:
     log(smi)
     keys = ("name", "route", "note", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3)]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in (k1, k2, k3, ln_entry)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

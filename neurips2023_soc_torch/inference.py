@@ -692,12 +692,13 @@ def _from_wire(obj, keep: Optional[deque] = None):
 
 def _kernel_counters():
     """(function, attribute) of every kernel launch and plain-call counter."""
-    from .ops import ms_deform_attn, window_attention, window_attention_torch
+    from .ops import layer_norm, ms_deform_attn, window_attention, window_attention_torch
 
     return [(ms_deform_attn, a) for a in ("launches", "plain_calls", "bwd_launches",
                                           "plain_bwd_calls")] + [
         (window_attention, "launches"), (window_attention, "plain_calls"),
-        (window_attention_torch, "calls")]
+        (window_attention_torch, "calls"), (layer_norm, "launches"),
+        (layer_norm, "plain_calls")]
 
 
 class _EngineWorker:

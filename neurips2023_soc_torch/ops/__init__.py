@@ -1,3 +1,4 @@
+from .layer_norm import layer_norm, layer_norm_ref
 from .ms_deform_attn import level_start_index, ms_deform_attn, ms_deform_attn_torch
 from .resize import (
     aligned_bilinear,
@@ -8,6 +9,8 @@ from .resize import (
 from .window_attention import window_attention, window_attention_ref, window_attention_torch
 
 __all__ = [
+    "layer_norm",
+    "layer_norm_ref",
     "window_attention",
     "window_attention_ref",
     "window_attention_torch",

@@ -21,7 +21,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "window_attention_fwd")
+KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "window_attention_fwd",
+           "layer_norm_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")  # csrc/*.cpp: host code
